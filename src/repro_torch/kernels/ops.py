@@ -1,0 +1,204 @@
+"""Public wrappers around the hand-written kernels — the port of
+``repro.kernels.ops`` (without the paged route and the Pallas probe).
+
+Two families of entry points, with the JAX package's shapes:
+
+* ``*_folded`` — the per-call route: logical-shape int8 in/out. Each call
+  pads its operands to the kernel's tile and slices the result back.
+* ``*_planned`` — the graph-planned route (``preprocess.plan_layout``):
+  weights and folded constants arrive pre-padded (and, inside an engine,
+  already on the device), the activation arrives lane-padded (padded here
+  only at graph entry), and the output stays padded with its padding lanes
+  zeroed by the kernel.
+
+Both families pre-pad SAME borders with the input zero point. On CPU
+tensors the kernels' plain versions run; on CUDA tensors the kernels.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.ops_ref import (FoldedConsts, clamp_bounds, pad_input_q,
+                                      round_up, same_pads)
+from . import qconv as _qc
+from . import qdwconv as _dw
+from . import qmatmul as _qm
+
+TILE = _qm.TILE
+
+
+def _pad2(a, m0: int, m1: int):
+    p0 = round_up(a.shape[0], m0) - a.shape[0]
+    p1 = round_up(a.shape[1], m1) - a.shape[1]
+    return F.pad(a, (0, p1, 0, p0)) if (p0 or p1) else a
+
+
+def _pad_channel_consts(fc: FoldedConsts, n: int, n_pad: int, device):
+    def grow(v, dtype):
+        out = torch.zeros(n_pad, dtype=dtype, device=device)
+        out[:n] = torch.as_tensor(v, dtype=dtype, device=device).reshape(-1)
+        return out
+    return (grow(fc.bias_term, torch.float32), grow(fc.rescale, torch.float32),
+            grow(fc.w_sum_zx, torch.int32), grow(fc.const_off, torch.int32),
+            grow(fc.z_w, torch.int32))
+
+
+def _planned_consts(lay, device):
+    return tuple(torch.as_tensor(c, device=device) for c in lay.consts)
+
+
+def _lane_pad(x, lanes: int):
+    """Zero-pad the trailing (lane) dimension to the planned physical width.
+    A no-op when the producer already emitted padded layout."""
+    if x.shape[-1] != lanes:
+        x = F.pad(x, (0, lanes - x.shape[-1]))
+    return x
+
+
+def _n_true(lay):
+    np_lanes = lay.out_shape[-1]
+    return lay.n_true if np_lanes != lay.n_true else None
+
+
+# ---------------------------------------------------------------------------
+# FULLY_CONNECTED
+# ---------------------------------------------------------------------------
+
+def qmatmul_folded(x_q, w_q, fc: FoldedConsts, fused: str = "NONE"):
+    """Folded Eq. (3) on the qmatmul kernel, logical shapes in and out. Any
+    leading x rank: (..., K) @ (K, N) runs as one 2-D product."""
+    lead = tuple(x_q.shape[:-1])
+    x_q = x_q.reshape(-1, x_q.shape[-1])
+    m = x_q.shape[0]
+    n = w_q.shape[1]
+    lo, hi = clamp_bounds(fc, fused)
+    xp = _pad2(x_q, TILE, TILE).contiguous()
+    wp = _pad2(w_q, TILE, TILE).contiguous()
+    consts = _pad_channel_consts(fc, n, wp.shape[1], x_q.device)
+    out = _qm.qmatmul(xp, wp, *consts, lo=lo, hi=hi)
+    return out[:m, :n].reshape(lead + (n,))
+
+
+def qmatmul_planned(x_q, lay):
+    """Planned-layout FC: x arrives logical (graph entry) or already in the
+    (M', K') padded layout; the output (M', N') stays padded, its padding
+    lanes zeroed by the kernel."""
+    mp = lay.out_shape[0]
+    if tuple(x_q.shape) != (mp, lay.in_lanes):
+        x_q = F.pad(x_q, (0, lay.in_lanes - x_q.shape[1], 0, mp - x_q.shape[0]))
+    return _qm.qmatmul(x_q.contiguous(),
+                       torch.as_tensor(lay.w_phys, device=x_q.device),
+                       *_planned_consts(lay, x_q.device), lo=lay.lo,
+                       hi=lay.hi, n_true=_n_true(lay))
+
+
+def qmatmul_planned_batched(x_q, lay):
+    """Planned-layout FC with one leading batch dimension: ``x_q`` is
+    (B, m, K) logical or (B, m, K') lane-padded; the batch merges into the
+    kernel's rows (aligned here, sliced after). Output (B, m, N') with
+    padding lanes zeroed."""
+    b, m = x_q.shape[0], x_q.shape[1]
+    rows = b * m
+    x2 = x_q.reshape(rows, x_q.shape[-1])
+    mp = round_up(rows, TILE)
+    lane_pad = lay.in_lanes - x2.shape[-1]
+    if mp != rows or lane_pad:
+        x2 = F.pad(x2, (0, lane_pad, 0, mp - rows))
+    out = _qm.qmatmul(x2.contiguous(),
+                      torch.as_tensor(lay.w_phys, device=x_q.device),
+                      *_planned_consts(lay, x_q.device), lo=lay.lo, hi=lay.hi,
+                      n_true=_n_true(lay))
+    if mp != rows:
+        out = out[:rows]
+    return out.reshape(b, m, lay.out_shape[-1])
+
+
+# ---------------------------------------------------------------------------
+# CONV_2D — Eq. (7) via im2col on the qmatmul kernel
+# ---------------------------------------------------------------------------
+
+def qconv_folded(x_q, f_q, fc: FoldedConsts, *, stride, padding,
+                 fused: str = "NONE"):
+    """Folded Eq. (7) on im2col + qmatmul, logical NHWC in/out; SAME
+    borders pre-padded with z_X."""
+    stride = tuple(stride)
+    kh, kw, cin, cout = f_q.shape
+    lo, hi = clamp_bounds(fc, fused)
+    x_q = pad_input_q(x_q, kh, kw, stride, padding, fc.z_x)
+    w_mat = _pad2(f_q.reshape(kh * kw * cin, cout), TILE, TILE).contiguous()
+    consts = _pad_channel_consts(fc, cout, w_mat.shape[1], x_q.device)
+    out = _qc.qconv2d(x_q, w_mat, *consts, kh=kh, kw=kw, stride=stride,
+                      lo=lo, hi=hi)
+    return out[..., :cout]
+
+
+def _pad_border_planned(x_q, kh, kw, stride, padding, z_x: int, c_true: int):
+    """SAME→VALID pre-pad in padded-lane layout: border entries carry the
+    input zero point on the ``c_true`` real lanes (so (X - z_X) vanishes and
+    the folded ΣW term stays exact) but ZERO on the padding lanes (so they
+    add nothing to the im2col rows' ΣX)."""
+    if padding == "VALID":
+        return x_q
+    _, h, w, _ = x_q.shape
+    (pt, pb), (pl, pr) = same_pads(h, w, kh, kw, stride)
+    if not (pt or pb or pl or pr):
+        return x_q
+    xp = F.pad(x_q, (0, 0, pl, pr, pt, pb))
+    if z_x == 0 or c_true == 0:
+        return xp
+    # fresh tensor: fill its border in place, real lanes only
+    xp[:, :pt, :, :c_true] = z_x
+    xp[:, pt + h:, :, :c_true] = z_x
+    xp[:, :, :pl, :c_true] = z_x
+    xp[:, :, pl + w:, :c_true] = z_x
+    return xp
+
+
+def qconv_planned(x_q, lay, *, kh, kw, stride, padding):
+    """Planned-layout Conv2D: lane-padded NHWC in (padded here only at graph
+    entry), lane-padded NHWC out with padding lanes zeroed."""
+    stride = tuple(stride)
+    x_q = _lane_pad(x_q, lay.in_lanes)
+    x_q = _pad_border_planned(x_q, kh, kw, stride, padding, lay.z_x,
+                              lay.c_true)
+    return _qc.qconv2d(x_q, torch.as_tensor(lay.w_phys, device=x_q.device),
+                       *_planned_consts(lay, x_q.device), kh=kh, kw=kw,
+                       stride=stride, lo=lay.lo, hi=lay.hi,
+                       n_true=_n_true(lay))
+
+
+# ---------------------------------------------------------------------------
+# DEPTHWISE_CONV_2D
+# ---------------------------------------------------------------------------
+
+def qdwconv_folded(x_q, w_q, fc: FoldedConsts, *, stride, padding,
+                   fused: str = "NONE"):
+    """Folded Eq. (9) on the depthwise kernel, logical NHWC in/out; SAME
+    borders pre-padded with z_X, channels padded to a multiple of 8."""
+    stride = tuple(stride)
+    kh, kw, c, mult = w_q.shape
+    if mult != 1:
+        raise ValueError("depth multiplier 1 only")
+    lo, hi = clamp_bounds(fc, fused)
+    x_q = pad_input_q(x_q, kh, kw, stride, padding, fc.z_x)
+    c_pad = round_up(c, 8)
+    x_q = _lane_pad(x_q, c_pad).contiguous()
+    w3 = _lane_pad(w_q[..., 0], c_pad).contiguous()
+    consts = _pad_channel_consts(fc, c, c_pad, x_q.device)
+    out = _dw.qdwconv(x_q, w3, *consts, stride=stride, lo=lo, hi=hi)
+    return out[..., :c]
+
+
+def qdwconv_planned(x_q, lay, *, stride, padding):
+    """Planned-layout DepthwiseConv2D: lane-padded NHWC in/out. Depthwise
+    math never mixes lanes, so borders may carry z_X on padding lanes too —
+    those outputs are zeroed by the kernel (``c_true``)."""
+    stride = tuple(stride)
+    kh, kw, _ = lay.w_phys.shape
+    x_q = _lane_pad(x_q, lay.in_lanes)
+    x_q = pad_input_q(x_q, kh, kw, stride, padding, lay.z_x)
+    return _dw.qdwconv(x_q.contiguous(),
+                       torch.as_tensor(lay.w_phys, device=x_q.device),
+                       *_planned_consts(lay, x_q.device), stride=stride,
+                       lo=lay.lo, hi=lay.hi, c_true=_n_true(lay))

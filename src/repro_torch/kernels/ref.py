@@ -1,0 +1,62 @@
+"""Plain PyTorch versions of the hand-written kernels — the port of
+``repro.kernels.ref``.
+
+Each computes exactly the function its CUDA kernel computes (pre-padded /
+per-channel argument convention, explicit clamp bounds, ``n_true`` /
+``c_true`` lane zeroing), in the kernel's epilogue order. The wrappers run
+them for CPU tensors; on the card only comparisons call them. They run on
+any device: integer products are int32 on the CPU and float64 on CUDA
+(exact, see ``ops_ref.imatmul``), and the epilogue's multiply-add is one
+``torch.addcmul`` (one rounding, like the kernel's ``__fmaf_rn``).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.ops_ref import I8_MAX, I8_MIN, dw_acc, imatmul
+
+
+def _row(v, n: int, dtype, like: torch.Tensor) -> torch.Tensor:
+    return torch.as_tensor(v, dtype=dtype, device=like.device).reshape(-1) \
+        .expand(n)
+
+
+def _requant(acc, sum_x, bias_term, rescale, w_sum_zx, const_off, z_w, lo, hi,
+             n_true):
+    n = acc.shape[-1]
+    inner = (acc - _row(z_w, n, torch.int32, acc) * sum_x
+             - _row(w_sum_zx, n, torch.int32, acc)
+             + _row(const_off, n, torch.int32, acc))
+    y = torch.addcmul(_row(bias_term, n, torch.float32, acc),
+                      _row(rescale, n, torch.float32, acc),
+                      inner.to(torch.float32))
+    # torch.full, not torch.tensor: no host-to-device copy, so the plain
+    # version can be captured in a CUDA graph for timing
+    lo_t = torch.full((), float(lo), dtype=torch.float32, device=acc.device)
+    hi_t = torch.full((), float(hi), dtype=torch.float32, device=acc.device)
+    y = torch.minimum(torch.maximum(y, lo_t), hi_t)
+    q = torch.clamp(torch.round(y), I8_MIN, I8_MAX).to(torch.int8)
+    if n_true is not None and n_true < n:
+        q[..., n_true:] = 0  # padded-layout contract: padding lanes are zero
+    return q
+
+
+def qmatmul_ref(x_q, w_q, bias_term, rescale, w_sum_zx, const_off, z_w, *,
+                lo=float("-inf"), hi=float("inf"), n_true=None):
+    """Plain version of ``kernels.qmatmul.qmatmul``: (M, K) x (K, N) int8 ->
+    (M, N) int8 with the folded epilogue; columns >= ``n_true`` are 0."""
+    x32 = x_q.to(torch.int32)
+    acc = imatmul(x32, w_q)
+    sum_x = x32.sum(-1, keepdim=True, dtype=torch.int32)
+    return _requant(acc, sum_x, bias_term, rescale, w_sum_zx, const_off, z_w,
+                    lo, hi, n_true)
+
+
+def qdwconv_ref(x_q, w_q, bias_term, rescale, w_sum_zx, const_off, z_w, *,
+                stride, lo=float("-inf"), hi=float("inf"), c_true=None):
+    """Plain version of ``kernels.qdwconv.qdwconv``: x_q (B,H,W,C)
+    pre-padded, w_q (kh,kw,C); VALID conv; channels >= ``c_true`` are 0."""
+    acc, sum_x = dw_acc(x_q.to(torch.int32), w_q.to(torch.int32),
+                        tuple(stride))
+    return _requant(acc, sum_x, bias_term, rescale, w_sum_zx, const_off, z_w,
+                    lo, hi, c_true)

@@ -1,0 +1,82 @@
+"""The hand-written CUDA kernels on the card: each against its plain PyTorch
+version, and the compiled engine's kernel route against its CPU plain route.
+Port only (the card's machine has no JAX). Skips without a GPU; run there
+with ``python -m pytest -q -m cuda tests/test_torch_cuda.py``."""
+import numpy as np
+import pytest
+import torch
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def gen():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
+    return torch.Generator(device="cuda").manual_seed(0)
+
+
+def _operands(gen, xshape, wshape, n):
+    def i8(shape):
+        return torch.randint(-128, 128, shape, generator=gen, device="cuda",
+                             dtype=torch.int16).to(torch.int8)
+    consts = (torch.randn(n, generator=gen, device="cuda") * 5,
+              torch.rand(n, generator=gen, device="cuda") * 0.02 + 1e-4,
+              torch.randint(-5000, 5000, (n,), generator=gen, device="cuda",
+                            dtype=torch.int32),
+              torch.randint(-100, 100, (n,), generator=gen, device="cuda",
+                            dtype=torch.int32),
+              torch.randint(-8, 9, (n,), generator=gen, device="cuda",
+                            dtype=torch.int32))
+    return i8(xshape), i8(wshape), consts
+
+
+@pytest.mark.parametrize("m,k,n,n_true", [(64, 64, 64, None), (2304, 1152, 128, 8),
+                                          (640, 256, 256, 200)])
+@pytest.mark.parametrize("lo,hi", [(float("-inf"), float("inf")), (-3.0, 57.7)])
+def test_qmatmul_kernel_equals_plain(gen, m, k, n, n_true, lo, hi):
+    from repro_torch.kernels import qmatmul as mm, ref
+    x, w, c = _operands(gen, (m, k), (k, n), n)
+    before = mm.launches
+    got = mm.qmatmul(x, w, *c, lo=lo, hi=hi, n_true=n_true)
+    assert mm.launches == before + 1
+    torch.testing.assert_close(got, ref.qmatmul_ref(x, w, *c, lo=lo, hi=hi,
+                                                    n_true=n_true),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("shape,stride,c_true", [((1, 98, 98, 128), 2, 8),
+                                                 ((8, 14, 14, 128), 1, 64),
+                                                 ((2, 7, 7, 256), 1, None)])
+def test_qdwconv_kernel_equals_plain(gen, shape, stride, c_true):
+    from repro_torch.kernels import qdwconv as dw, ref
+    x, w, c = _operands(gen, shape, (3, 3, shape[-1]), shape[-1])
+    before = dw.launches
+    got = dw.qdwconv(x, w, *c, stride=(stride, stride), lo=-5.0, hi=100.0,
+                     c_true=c_true)
+    assert dw.launches == before + 1
+    torch.testing.assert_close(got, ref.qdwconv_ref(
+        x, w, *c, stride=(stride, stride), lo=-5.0, hi=100.0, c_true=c_true),
+        rtol=0, atol=0)
+
+
+def test_wrapper_rejects_misaligned_rows(gen):
+    from repro_torch.kernels import qmatmul as mm
+    x, w, c = _operands(gen, (100, 64), (64, 64), 64)
+    with pytest.raises(ValueError):
+        mm.qmatmul(x, w, *c)
+
+
+def test_person_engine_on_card_equals_cpu_plain_route(gen):
+    from repro_torch.configs.paper_models import build_person
+    from repro_torch.core.engine import CompiledModel
+    from repro_torch.core.quantize import quantize_graph
+    rng = np.random.default_rng(1)
+    qg = quantize_graph(build_person(), [rng.normal(0, 1, (1, 96, 96, 1))
+                                         .astype("f")], device="cuda")
+    xs = np.stack([qg.tensor(qg.inputs[0]).qparams.quantize(
+        rng.normal(0, 1, (1, 96, 96, 1)).astype("f")) for _ in range(3)])
+    got = CompiledModel(qg, device="cuda").predict_q_many(xs, max_batch=2)
+    want = CompiledModel(qg, use_kernels=False, device="cpu").predict_q_many(xs)
+    # softmax output: ±1 LSB (exp differs in the last ulp between devices)
+    assert np.abs(got.astype(int) - want.astype(int)).max() <= 1
