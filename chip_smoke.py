@@ -3,29 +3,49 @@
     python3 chip_smoke.py
 
 Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
-(into ``build/repro_torch_kernels/``), then, on the full-width person
-detector (MobileNetV1-0.25 on 96×96×1, random weights from a seed):
+(into ``build/repro_torch_kernels/``), then drives two paths of the port at
+full width, with random weights from a seed:
 
 1. device   — the card, as torch and nvidia-smi see it;
 2. build    — nvcc time of every kernel source, built in parallel;
-3. kernels  — each kernel at every distinct (shape, clamp bound, n_true)
-              the person plan launches at buckets 1 and 8, on seeded random
-              int8 inputs with nonzero z_w, held exactly against its plain
-              PyTorch version; kernel, plain and library times;
-4. layers   — the compiled engine's kernel route walked op by op through
-              the registry, each op fed the kernel route's own previous
-              output and held against the plain route of the same op on a
-              CPU copy of the same input (exact; softmax ±1 LSB);
-5. serve    — the main path: ``predict_q`` at batch 1 and ``predict_q_many``
-              on batches 1, 3, 8 (``max_batch=8``), every row held against
-              the port's CPU plain route, launch counters checked;
-6. trace    — torch.profiler over bucket-8 forwards: device time by kernel
-              and the device's busy share.
+3. probe    — ``can_launch_kernels() == (True, None)``, and the probe kernel
+              held against ``x + 1``;
+4. kernels  — each kernel at every distinct call the two paths launch, on
+              seeded random inputs (int8 with nonzero z_w; float), held
+              against its plain PyTorch version: ``qmatmul`` / ``qdwconv``
+              at every (shape, clamp bound, n_true) of the person plan at
+              buckets 1 and 8; ``paged_qmatmul`` at every shape the paged
+              engines launch plus the 256×256 FC at pages 2/8/32 (int8
+              exact); ``fmatmul`` at (8,16,8), (130,70,33) and the speech
+              model's float FC, padded, in float32 (1e-5) and bfloat16
+              (5e-2). Kernel, plain and library times and the bound;
+5. layers   — person's kernel route walked op by op through the registry,
+              each op fed the kernel route's own previous output and held
+              against the plain route of the same op on a CPU copy of the
+              same input (exact; softmax ±1 LSB);
+6. serve    — the first main path, counted: person's ``predict_q`` at batch
+              1 and ``predict_q_many`` on batches 1, 3, 8 (``max_batch=8``),
+              every row held against the port's CPU plain route;
+7. paging   — the second main path, counted: the paged route (Sec. 4.3)
+              with ``use_kernels=True`` on sine ``{0: 16, 1: 16}``, speech
+              ``{2: 4}`` and person ``{29: 2}`` at ``predict_q`` and buckets
+              1, 4, 8, the 256×256 FC (batch 4) at pages 2, 8 and 32, and
+              the float speech model, whose FC runs on ``fmatmul``. Engines
+              are built inside the count with the probe's cache cleared.
+              Every row equals the card's unpaged engine and the port's CPU
+              plain paged route (paged FC logits exact; softmax ±1 LSB);
+              paged launches per forward are checked (sine 2, speech 1,
+              person 1), with ``plan_paged`` beside ``plan_stack`` bytes and
+              bucket-8 call times of the paged and unpaged engines;
+8. routes   — ``predict_q_routed`` on person, and on speech with its paging
+              map, for every route: all rows equal the primary route's;
+9. trace    — torch.profiler over person bucket-8 forwards: device time by
+              kernel and the device's busy share.
 
-Each phase prints one JSON line (the ``kernels`` phase lists every shape
-it timed); then the ``kernels`` summary line, the nvidia-smi line, and
-last ``{"ok": true, "device": {...}}``. Any failure raises, and the script
-exits non-zero without the last line.
+Each phase prints one JSON line (the ``kernels`` phase lists every call it
+timed); then the ``kernels`` summary line, the nvidia-smi line, and last
+``{"ok": true, "device": {...}}``. Any failure raises, and the script exits
+non-zero without the last line.
 """
 from __future__ import annotations
 
@@ -48,9 +68,23 @@ SERVE_BATCHES = (1, 3, 8)
 MAX_BATCH = 8
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 INT8_OPS_PER_S = 1.979e15   # H100 SXM dense int8 tensor-core peak
+FLOPS_PER_S = {"float32": 67e12,     # H100 SXM float32, CUDA cores
+               "bfloat16": 989e12}   # H100 SXM dense bf16 tensor-core peak
 LAUNCHES_PER_FORWARD = {"qmatmul": 15, "qdwconv": 13}
 REPLACES = {"qmatmul": "src/repro/kernels/qmatmul.py:66",
-            "qdwconv": "src/repro/kernels/qdwconv.py:58"}
+            "qdwconv": "src/repro/kernels/qdwconv.py:58",
+            "paged_qmatmul": "src/repro/kernels/paged_matmul.py:37",
+            "fmatmul": "src/repro/kernels/qmatmul.py:130",
+            "probe": "src/repro/kernels/ops.py:73"}
+# the paged route: model -> (input shape, paging map, paged launches per
+# forward, the paged FC's op index)
+PAGED = {"sine": ((1, 1), {0: 16, 1: 16}, 2, 1),
+         "speech": ((1, 49, 40, 1), {2: 4}, 1, 2),
+         "person": ((1, 96, 96, 1), {29: 2}, 1, 29)}
+PAGED_BUCKETS = (1, 4, 8)
+FC256_PAGES = (2, 8, 32)
+FMATMUL_SHAPES = ((8, 16, 8), (130, 70, 33))
+FMATMUL_TOL = {"float32": 1e-5, "bfloat16": 5e-2}
 
 
 def emit(obj) -> None:
@@ -127,62 +161,92 @@ def host_ms(fn, reps: int = 20) -> float:
 
 def record_calls(cm, xs_by_bucket):
     """Run one forward per bucket through ``predict_q_many`` and record each
-    kernel call's signature (shapes, bounds, lane mask, stride)."""
+    kernel call's signature (kind, shapes, bounds or dtype, lane mask or
+    page, stride)."""
+    from repro_torch.kernels import paged_matmul as pm_mod
     from repro_torch.kernels import qdwconv as dw_mod
     from repro_torch.kernels import qmatmul as mm_mod
 
     calls = {b: [] for b in xs_by_bucket}
     current = []
-    orig_mm, orig_dw = mm_mod.qmatmul, dw_mod.qdwconv
+    orig = (mm_mod.qmatmul, dw_mod.qdwconv, pm_mod.paged_qmatmul,
+            mm_mod.fmatmul)
 
     def mm(x, w, *consts, lo, hi, n_true=None):
         current.append(("qmatmul", tuple(x.shape), tuple(w.shape), lo, hi,
                         n_true, None))
-        return orig_mm(x, w, *consts, lo=lo, hi=hi, n_true=n_true)
+        return orig[0](x, w, *consts, lo=lo, hi=hi, n_true=n_true)
 
     def dw(x, w, *consts, stride, lo, hi, c_true=None):
         current.append(("qdwconv", tuple(x.shape), tuple(w.shape), lo, hi,
                         c_true, tuple(stride)))
-        return orig_dw(x, w, *consts, stride=stride, lo=lo, hi=hi,
+        return orig[1](x, w, *consts, stride=stride, lo=lo, hi=hi,
                        c_true=c_true)
 
-    mm_mod.qmatmul, dw_mod.qdwconv = mm, dw
+    def pm(x, w, *consts, page, lo, hi):
+        current.append(("paged_qmatmul", tuple(x.shape), tuple(w.shape), lo,
+                        hi, page, None))
+        return orig[2](x, w, *consts, page=page, lo=lo, hi=hi)
+
+    def fm(x, w):
+        current.append(("fmatmul", tuple(x.shape), tuple(w.shape),
+                        str(x.dtype).removeprefix("torch."), None, None, None))
+        return orig[3](x, w)
+
+    mm_mod.qmatmul, dw_mod.qdwconv, pm_mod.paged_qmatmul, mm_mod.fmatmul = (
+        mm, dw, pm, fm)
     try:
         for b, xs in xs_by_bucket.items():
             current.clear()
             cm.predict_q_many(xs, max_batch=MAX_BATCH)
             calls[b] = list(current)
     finally:
-        mm_mod.qmatmul, dw_mod.qdwconv = orig_mm, orig_dw
+        (mm_mod.qmatmul, dw_mod.qdwconv, pm_mod.paged_qmatmul,
+         mm_mod.fmatmul) = orig
     return calls
 
 
 def work(sig) -> tuple:
-    """(bytes, int8 ops) the call must move and do: each input read once,
-    each output written once; a multiply-add counts as two operations."""
+    """(bytes, ops, peak ops/s) of the call: each input read once, each
+    output written once; a multiply-add counts as two operations."""
     kind, xs, ws, *_rest, stride = sig
-    if kind == "qmatmul":
+    if kind in ("qmatmul", "paged_qmatmul"):
         m, k = xs
         n = ws[1]
-        return m * k + k * n + 5 * 4 * n + m * n, 2 * m * k * n
+        return m * k + k * n + 5 * 4 * n + m * n, 2 * m * k * n, INT8_OPS_PER_S
+    if kind == "fmatmul":
+        m, k = xs
+        n = ws[1]
+        size = 4 if sig[3] == "float32" else 2
+        return (m * k + k * n + m * n) * size, 2 * m * k * n, FLOPS_PER_S[sig[3]]
+    if kind == "probe":
+        return 2 * xs[0] * xs[1] * 4, xs[0] * xs[1], FLOPS_PER_S["float32"]
     b, h, w, c = xs
     kh, kw = ws[:2]
     oh = (h - kh) // stride[0] + 1
     ow = (w - kw) // stride[1] + 1
     return (b * h * w * c + kh * kw * c + 5 * 4 * c + b * oh * ow * c,
-            2 * kh * kw * b * oh * ow * c)
+            2 * kh * kw * b * oh * ow * c, INT8_OPS_PER_S)
 
 
 def bound_ms(sig) -> tuple:
-    nbytes, ops = work(sig)
+    nbytes, ops, peak = work(sig)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / INT8_OPS_PER_S * 1e3
+    t_ops = ops / peak * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def random_operands(sig, gen):
     kind, xs, ws, *_ = sig
     dev = "cuda"
+    if kind == "fmatmul":
+        dtype = getattr(torch, sig[3])
+        # the float FC's weight scale (build_speech draws sigma 0.05): a sum
+        # of 4096 products keeps its rounding inside the 1e-5 tolerance
+        w_scale = 0.05 if xs[1] > 1024 else 1.0
+        return (torch.randn(xs, generator=gen, device=dev).to(dtype),
+                (torch.randn(ws, generator=gen, device=dev) * w_scale)
+                .to(dtype), ())
 
     def i8(shape):
         return torch.randint(-128, 128, shape, generator=gen, device=dev,
@@ -212,6 +276,22 @@ def library_qmatmul(x, w, consts, lo, hi, n_true):
     return q
 
 
+def library_paged(x, w, consts, lo, hi):
+    """Yardstick only: torch._int_mm where its shape rules allow (M > 16, K
+    and N multiples of 8), else a float64 torch.matmul (exact here), each +
+    requant in torch. Returns (result, label)."""
+    bias, resc, wsum, coff, zw = consts
+    m, k = x.shape
+    n = w.shape[1]
+    if m > 16 and k % 8 == 0 and n % 8 == 0:
+        acc, label = torch._int_mm(x, w), "int_mm"
+    else:
+        acc, label = (x.double() @ w.double()).to(torch.int32), "matmul_f64"
+    sx = x.sum(1, keepdim=True, dtype=torch.int32)
+    y = torch.addcmul(bias, resc, (acc - zw * sx - wsum + coff).float())
+    return y.clamp(lo, hi).round().clamp(-128, 127).to(torch.int8), label
+
+
 def library_qdwconv(x, w, consts, lo, hi, c_true, stride):
     """Yardstick only: cuDNN grouped float32 convolution (exact here: every
     sum is an integer below 2**24) + requant in torch."""
@@ -230,20 +310,25 @@ def library_qdwconv(x, w, consts, lo, hi, c_true, stride):
     return q
 
 
-def phase_kernels(calls):
+def phase_kernels(sigs):
+    """Each distinct kernel call against its plain version, then timed."""
     from repro_torch.kernels import ref
+    from repro_torch.kernels.paged_matmul import paged_qmatmul
     from repro_torch.kernels.qdwconv import qdwconv
-    from repro_torch.kernels.qmatmul import qmatmul
+    from repro_torch.kernels.qmatmul import fmatmul, qmatmul
 
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "torch.backends.cuda.matmul.allow_tf32 must be False")
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rows, measured = [], {}
-    distinct = sorted({s for b in calls for s in calls[b]},
-                      key=lambda s: (s[0], s[1], s[2], str(s[3:])))
+    distinct = sorted(set(sigs), key=lambda s: (s[0], s[1], s[2], str(s[3:])))
     for sig in distinct:
         kind, xs, ws, lo, hi, lanes, stride = sig
         x, w, consts = random_operands(sig, gen)
-        lo_t = torch.tensor(lo, dtype=torch.float32, device="cuda")
-        hi_t = torch.tensor(hi, dtype=torch.float32, device="cuda")
+        if kind != "fmatmul":
+            lo_t = torch.tensor(lo, dtype=torch.float32, device="cuda")
+            hi_t = torch.tensor(hi, dtype=torch.float32, device="cuda")
+        lib_label = "torch"
         if kind == "qmatmul":
             def kern():
                 return qmatmul(x, w, *consts, lo=lo, hi=hi, n_true=lanes)
@@ -254,6 +339,26 @@ def phase_kernels(calls):
 
             def lib():
                 return library_qmatmul(x, w, consts, lo_t, hi_t, lanes)
+        elif kind == "paged_qmatmul":
+            def kern():
+                return paged_qmatmul(x, w, *consts, page=lanes, lo=lo, hi=hi)
+
+            def plain():
+                return ref.paged_qmatmul_ref(x, w, *consts, page=lanes, lo=lo,
+                                             hi=hi)
+
+            def lib():
+                return library_paged(x, w, consts, lo_t, hi_t)[0]
+            lib_label = library_paged(x, w, consts, lo_t, hi_t)[1]
+        elif kind == "fmatmul":
+            def kern():
+                return fmatmul(x, w)
+
+            def plain():
+                return ref.fmatmul_ref(x, w)
+
+            def lib():
+                return torch.matmul(x, w)
         else:
             def kern():
                 return qdwconv(x, w, *consts, stride=stride, lo=lo, hi=hi,
@@ -267,29 +372,297 @@ def phase_kernels(calls):
                 return library_qdwconv(x, w, consts, lo_t, hi_t, lanes, stride)
         got, want, lib_out = kern(), plain(), lib()
         torch.cuda.synchronize()
-        err = int((got.to(torch.int32) - want.to(torch.int32)).abs().max())
-        check(err == 0, f"{kind} {xs}x{ws} differs from its plain version "
-                        f"by up to {err}")
+        if kind == "fmatmul":
+            tol = FMATMUL_TOL[lo]
+            diff = (got.float() - want.float()).abs()
+            err = float(diff.max())
+            excess = float((diff - tol - tol * want.float().abs()).max())
+            check(excess <= 0, f"fmatmul {lo} {xs}x{ws} differs from its "
+                               f"plain version by up to {err} (tol {tol})")
+            lib_equal = bool(torch.allclose(lib_out.float(), want.float(),
+                                            rtol=tol, atol=tol))
+        else:
+            err = int((got.to(torch.int32) - want.to(torch.int32)).abs().max())
+            check(err == 0, f"{kind} {xs}x{ws} differs from its plain version "
+                            f"by up to {err}")
+            lib_equal = bool(torch.equal(lib_out, want))
         b_ms, b_by = bound_ms(sig)
         m = dict(kind=kind, x=list(xs), w=list(ws), lo=lo, hi=hi,
                  lanes=lanes, stride=stride, max_abs_err=err,
-                 library_equal=bool(torch.equal(lib_out, want)),
+                 library=lib_label, library_equal=lib_equal,
                  ms=graph_ms(kern), plain_ms=graph_ms(plain),
                  library_ms=graph_ms(lib), call_ms=cuda_ms(kern),
                  bound_ms=b_ms, bound_by=b_by)
         measured[sig] = m
         rows.append(m)
-    emit({"phase": "kernels", "shapes": len(rows), "exact": True,
-          "per_shape": [{k: r[k] for k in ("kind", "x", "w", "lanes", "stride",
-                                           "ms", "call_ms", "plain_ms",
-                                           "library_ms", "library_equal",
-                                           "bound_ms", "bound_by")}
+    emit({"phase": "kernels", "shapes": len(rows),
+          "per_shape": [{"dtype": r["lo"] if r["kind"] == "fmatmul" else "int8",
+                         **{k: r[k] for k in (
+                             "kind", "x", "w", "lanes", "stride",
+                             "max_abs_err", "ms", "call_ms", "plain_ms",
+                             "library", "library_ms", "library_equal",
+                             "bound_ms", "bound_by")}}
                         for r in rows]})
     return measured
 
 
 def per_forward(calls, measured, bucket, kind, key):
     return sum(measured[s][key] for s in calls[bucket] if s[0] == kind)
+
+
+def round_up(d: int, m: int = 128) -> int:
+    return -(-d // m) * m
+
+
+def with_output(g, op_index):
+    """The same graph with op ``op_index``'s output appended to its outputs,
+    so a paged FC's logits are compared exactly, not only through softmax."""
+    from repro_torch.core import graph as G
+    t = g.ops[op_index].outputs[0]
+    if t in g.outputs:
+        return g
+    return G.Graph(g.tensors, g.ops, g.inputs, list(g.outputs) + [t], g.name)
+
+
+def fc256_model():
+    """``benchmarks/bench_paging.py``'s 256 -> 256 RELU FC at batch 4."""
+    from repro_torch.core.builder import GraphBuilder
+    from repro_torch.core.quantize import quantize_graph
+    rng = np.random.default_rng(0)
+    b = GraphBuilder("paged_fc")
+    x = b.input("x", (4, 256))
+    b.output(b.fully_connected(x, rng.normal(0, 0.3, (256, 256)).astype("f"),
+                               rng.normal(size=256).astype("f"), fused="RELU"))
+    qg = quantize_graph(b.build(), [rng.normal(size=(4, 256)).astype("f")
+                                    for _ in range(4)], device="cuda")
+    return qg, qg.tensor(qg.inputs[0]).qparams.quantize(
+        rng.normal(size=(4, 256)).astype("f"))
+
+
+def max_diff(got, want) -> float:
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    check(len(got) == len(want), "output count differs")
+    d = 0.0
+    for a, b in zip(got, want):
+        check(a.shape == b.shape, f"shape {a.shape} != {b.shape}")
+        d = max(d, float(np.abs(a.astype(np.float64)
+                                - b.astype(np.float64)).max(initial=0)))
+    return d
+
+
+def launch_counts() -> dict:
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import paged_matmul as pm_mod
+    from repro_torch.kernels import qdwconv as dw_mod
+    from repro_torch.kernels import qmatmul as mm_mod
+    return {"qmatmul": mm_mod.launches, "qdwconv": dw_mod.launches,
+            "paged_qmatmul": pm_mod.launches,
+            "fmatmul": mm_mod.fmatmul_launches, "probe": kops.probe_launches}
+
+
+def reset_counts() -> None:
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import paged_matmul as pm_mod
+    from repro_torch.kernels import qdwconv as dw_mod
+    from repro_torch.kernels import qmatmul as mm_mod
+    mm_mod.launches = dw_mod.launches = pm_mod.launches = 0
+    mm_mod.fmatmul_launches = kops.probe_launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the probe
+# ---------------------------------------------------------------------------
+
+def phase_probe():
+    import ctypes
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import ops as kops
+
+    kops.can_launch_kernels.cache_clear()
+    result = kops.can_launch_kernels()
+    check(result == (True, None), f"can_launch_kernels() = {result}")
+    fn = _build.function("probe", "repro_probe",
+                         [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p])
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    x = torch.randn((8, 128), generator=gen, device="cuda")
+    out = torch.empty_like(x)
+
+    def kern():
+        _build.launch_check("probe", fn(_build.ptr(x, 4), _build.ptr(out, 4),
+                                        x.numel(), _build.cuda_stream(x)))
+
+    kern()
+    torch.cuda.synchronize()
+    err = float((out - (x + 1)).abs().max())
+    check(err == 0.0, f"probe kernel differs from x + 1 by {err}")
+    sig = ("probe", (8, 128), (), "float32", None, None, None)
+    b_ms, b_by = bound_ms(sig)
+    m = dict(max_abs_err=err, ms=graph_ms(kern), plain_ms=graph_ms(lambda: x + 1),
+             library_ms=graph_ms(lambda: torch.add(x, 1.0)),
+             call_ms=cuda_ms(kern), bound_ms=b_ms, bound_by=b_by)
+    emit({"phase": "probe", "can_launch_kernels": list(result), **m})
+    return m
+
+
+# ---------------------------------------------------------------------------
+# the paged route: the second main path
+# ---------------------------------------------------------------------------
+
+def phase_paging(models, fc256, float_speech):
+    """``models``: name -> (graph, 8 inputs); ``fc256``: (graph, input);
+    ``float_speech``: (float graph, 8 float inputs). Builds the engines and
+    runs every forward inside one count."""
+    from repro_torch.core.engine import CompiledModel
+    from repro_torch.core.memory import plan_paged, plan_stack
+    from repro_torch.kernels import ops as kops
+
+    def forwards(cm, xs):
+        return ([cm.predict_q(xs[0])]
+                + [cm.predict_q_many(xs[:b], max_batch=MAX_BATCH)
+                   for b in PAGED_BUCKETS])
+
+    n_fwd = 1 + len(PAGED_BUCKETS)
+    want_card, want_cpu, unpaged = {}, {}, {}
+    for name, (g, xs) in models.items():
+        paged = PAGED[name][1]
+        unpaged[name] = CompiledModel(g, device="cuda")
+        want_card[name] = forwards(unpaged[name], xs)
+        want_cpu[name] = forwards(CompiledModel(g, use_kernels=False,
+                                                device="cpu", paged=paged), xs)
+    fg, fx = fc256
+    fc_card = CompiledModel(fg, device="cuda").predict_q(fx)
+    fc_cpu = {p: CompiledModel(fg, use_kernels=False, device="cpu",
+                               paged={0: p}).predict_q(fx) for p in FC256_PAGES}
+    sg, sxs = float_speech
+    float_plain = forwards(CompiledModel(sg, use_kernels=False, device="cuda"),
+                           sxs)
+    float_cpu = forwards(CompiledModel(sg, use_kernels=False, device="cpu"), sxs)
+    torch.cuda.synchronize()
+
+    # -- the count: engines built and driven as a fresh process would -------
+    reset_counts()
+    kops.can_launch_kernels.cache_clear()
+    t0 = time.perf_counter()
+    got, per_model, engines = {}, {}, {}
+    for name, (g, xs) in models.items():
+        before = launch_counts()
+        cm = engines[name] = CompiledModel(g, device="cuda",
+                                           paged=PAGED[name][1])
+        got[name] = forwards(cm, xs)
+        torch.cuda.synchronize()
+        per_model[name] = {k: v - before[k] for k, v in launch_counts().items()}
+    before = launch_counts()
+    fc_got = {p: CompiledModel(fg, device="cuda", paged={0: p}).predict_q(fx)
+              for p in FC256_PAGES}
+    torch.cuda.synchronize()
+    per_model["fc256"] = {k: v - before[k] for k, v in launch_counts().items()}
+    before = launch_counts()
+    float_got = forwards(CompiledModel(sg, device="cuda"), sxs)
+    torch.cuda.synchronize()
+    per_model["speech_float"] = {k: v - before[k]
+                                 for k, v in launch_counts().items()}
+    launches = launch_counts()
+    wall_s = time.perf_counter() - t0
+
+    # -- checks ---------------------------------------------------------------
+    check(launches["probe"] == 1, f"probe launches {launches['probe']}")
+    per_fwd_q = {"sine": (1, 0), "speech": (1, 0), "person": (14, 13)}
+    report = {}
+    for name, (g, xs) in models.items():
+        shape, paged, paged_per_fwd, fc_op = PAGED[name]
+        c = per_model[name]
+        check(c["paged_qmatmul"] == paged_per_fwd * n_fwd,
+              f"{name}: paged_qmatmul launches {c['paged_qmatmul']} for "
+              f"{n_fwd} forwards, expected {paged_per_fwd} per forward")
+        check((c["qmatmul"], c["qdwconv"]) == tuple(
+            v * n_fwd for v in per_fwd_q[name]),
+            f"{name}: unpaged launches {c}")
+        card_d = max(max_diff(a, b) for a, b in zip(got[name], want_card[name]))
+        check(card_d == 0, f"{name}: paged rows differ from the card's "
+                           f"unpaged engine by {card_d}")
+        producer = {op.outputs[0]: op.op for op in g.ops}
+        soft = [producer[t] == "SOFTMAX" for t in g.outputs]
+        logits_d, probs_d = 0.0, 0.0
+        for a, b in zip(got[name], want_cpu[name]):
+            a = a if isinstance(a, tuple) else (a,)
+            b = b if isinstance(b, tuple) else (b,)
+            for u, v, is_soft in zip(a, b, soft):
+                if is_soft:
+                    probs_d = max(probs_d, max_diff(u, v))
+                else:
+                    logits_d = max(logits_d, max_diff(u, v))
+        check(logits_d == 0, f"{name}: paged logits differ from the CPU "
+                             f"plain route by {logits_d}")
+        check(probs_d <= 1, f"{name}: softmax differs from the CPU plain "
+                            f"route by {probs_d}")
+        # bucket-8 call, host clock, paged and unpaged engines in turns
+        bucket8 = {"unpaged": [], "paged": []}
+        for label in ("unpaged", "paged", "paged", "unpaged"):
+            eng = unpaged[name] if label == "unpaged" else engines[name]
+            bucket8[label].append(host_ms(
+                lambda eng=eng: eng.predict_q_many(xs, max_batch=MAX_BATCH),
+                reps=10))
+        pp, st = plan_paged(g, paged), plan_stack(g)
+        report[name] = {
+            "paged": {str(k): v for k, v in paged.items()},
+            "launches": c, "paged_per_forward": c["paged_qmatmul"] / n_fwd,
+            "forwards": n_fwd, "vs_card_unpaged_max_abs_diff": card_d,
+            "vs_cpu_plain_logits_max_abs_diff": logits_d,
+            "vs_cpu_plain_softmax_max_abs_diff": probs_d,
+            "plan_paged_peak_bytes": pp.peak_bytes,
+            "plan_stack_peak_bytes": st.peak_bytes,
+            "paged_op_bytes": {str(i): [pp.per_op[i], st.per_op[i]]
+                               for i in paged},
+            "bucket8_call_ms": bucket8}
+    check(per_model["fc256"]["paged_qmatmul"] == len(FC256_PAGES),
+          f"fc256 launches {per_model['fc256']}")
+    for p in FC256_PAGES:
+        check(max_diff(fc_got[p], fc_card) == 0 and
+              max_diff(fc_got[p], fc_cpu[p]) == 0,
+              f"fc256 pages {p}: rows differ")
+    pp = {p: plan_paged(fg, {0: p}) for p in FC256_PAGES}
+    report["fc256"] = {"launches": per_model["fc256"],
+                       "plan_stack_peak_bytes": plan_stack(fg).peak_bytes,
+                       "plan_paged_peak_bytes": {str(p): pp[p].peak_bytes
+                                                 for p in FC256_PAGES}}
+    check(per_model["speech_float"]["fmatmul"] == n_fwd,
+          f"float speech launches {per_model['speech_float']}")
+    tol = FMATMUL_TOL["float32"]
+    for a, b in zip(float_got, float_plain):
+        check(np.allclose(a, b, rtol=tol, atol=tol),
+              "float speech: kernel route differs from the card's plain route")
+    report["speech_float"] = {
+        "launches": per_model["speech_float"],
+        "vs_card_plain_max_abs_diff": max(max_diff(a, b) for a, b in
+                                          zip(float_got, float_plain)),
+        "vs_cpu_plain_max_abs_diff": max(max_diff(a, b) for a, b in
+                                         zip(float_got, float_cpu))}
+    emit({"phase": "paging", "launches": launches, "wall_s": round(wall_s, 3),
+          "models": report})
+    return launches
+
+
+def phase_routes(cases):
+    """``cases``: (name, graph, inputs, paging map) -> every route of
+    ``predict_q_routed`` equals the primary route bit for bit."""
+    from repro_torch.core.engine import CompiledModel
+    out = {}
+    for name, g, xs, paged in cases:
+        cm = CompiledModel(g, device="cuda", paged=paged)
+        primary = cm.predict_q_routed(xs, max_batch=MAX_BATCH)
+        ms = {}
+        for route in cm.routes():
+            rows = cm.predict_q_routed(xs, route=route, max_batch=MAX_BATCH)
+            d = max_diff(rows, primary)
+            check(d == 0, f"{name}: route {route} differs from the primary "
+                          f"route by {d}")
+            ms[route] = host_ms(lambda r=route: cm.predict_q_routed(
+                xs, route=r, max_batch=MAX_BATCH), reps=3)
+        out[name] = {"routes": list(cm.routes()), "rows": int(xs.shape[0]),
+                     "paged": {str(k): v for k, v in (paged or {}).items()},
+                     "identical": True, "ms_per_call": ms}
+    emit({"phase": "routes", "models": out})
 
 
 # ---------------------------------------------------------------------------
@@ -358,12 +731,11 @@ def main() -> int:
               "needs an NVIDIA GPU", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.join(ROOT, "src"))
-    from repro_torch.configs.paper_models import build_person
+    from repro_torch.configs.paper_models import (PAPER_MODELS, build_person,
+                                                  build_speech)
     from repro_torch.core.engine import CompiledModel, bucket_for
     from repro_torch.core.quantize import quantize_graph
     from repro_torch.kernels import _build
-    from repro_torch.kernels import qdwconv as dw_mod
-    from repro_torch.kernels import qmatmul as mm_mod
 
     t_start = time.perf_counter()
     kind = torch.cuda.get_device_name(0)
@@ -382,8 +754,9 @@ def main() -> int:
                           "ptxas": [ln.strip() for ln in r["log"].splitlines()
                                     if "Used" in ln or "spill" in ln]}
                       for n, r in built.items()}})
+    probe = phase_probe()
 
-    # the model: full-width person detector, random weights from a seed
+    # the first path: full-width person detector, random weights from a seed
     rng = np.random.default_rng(SEED)
     qg = quantize_graph(build_person(), [rng.normal(0, 1, (1, 96, 96, 1))
                                          .astype("f") for _ in range(2)],
@@ -399,18 +772,60 @@ def main() -> int:
                   for k in LAUNCHES_PER_FORWARD}
         check(counts == LAUNCHES_PER_FORWARD,
               f"bucket {b}: kernel calls per forward {counts}")
-    measured = phase_kernels(calls)
+
+    # the second path: the paged route on the three paper models, the
+    # 256x256 FC, and the float speech model's FC on fmatmul
+    paged_models = {}
+    for name, (shape, paged, _, fc_op) in PAGED.items():
+        prng = np.random.default_rng(SEED + 1)
+        g = quantize_graph(PAPER_MODELS[name](), [
+            prng.normal(0, 1, shape).astype("f") for _ in range(2)],
+            device="cuda")
+        g = with_output(g, fc_op)
+        xs = np.stack([g.tensor(g.inputs[0]).qparams.quantize(
+            prng.normal(0, 1, shape).astype("f")) for _ in range(8)])
+        paged_models[name] = (g, xs)
+    fc256 = fc256_model()
+    float_speech = (build_speech(), np.random.default_rng(SEED + 2).normal(
+        0, 1, (8, 1, 49, 40, 1)).astype("f"))
+    paged_calls = {name: record_calls(
+        CompiledModel(g, device="cuda", paged=PAGED[name][1]),
+        {b: xs[:b] for b in PAGED_BUCKETS})
+        for name, (g, xs) in paged_models.items()}
+    fc_calls = [s for p in FC256_PAGES for s in record_calls(
+        CompiledModel(fc256[0], device="cuda", paged={0: p}),
+        {4: fc256[1][None]})[4]]
+    float_calls = record_calls(CompiledModel(float_speech[0], device="cuda"),
+                               {b: float_speech[1][:b] for b in PAGED_BUCKETS})
+    for name, pc in paged_calls.items():
+        for b in PAGED_BUCKETS:
+            n = sum(1 for s in pc[b] if s[0] == "paged_qmatmul")
+            check(n == PAGED[name][2],
+                  f"{name} bucket {b}: {n} paged_qmatmul calls per forward")
+
+    fm_sigs = []
+    for dtype in ("float32", "bfloat16"):
+        for m, k, n in FMATMUL_SHAPES:
+            fm_sigs.append(("fmatmul", (round_up(m), round_up(k)),
+                            (round_up(k), round_up(n)), dtype, None, None, None))
+        fm_sigs += [s[:3] + (dtype,) + s[4:] for s in float_calls[1]
+                    if s[0] == "fmatmul"]
+    sigs = ([s for b in calls for s in calls[b]]
+            + [s for pc in paged_calls.values() for b in pc for s in pc[b]
+               if s[0] == "paged_qmatmul"]
+            + [s for s in fc_calls if s[0] == "paged_qmatmul"] + fm_sigs)
+    measured = phase_kernels(sigs)
     phase_layers(cm, qg, xq[0])
 
-    # -- the main path, counted ------------------------------------------
+    # -- the first main path, counted ----------------------------------------
     want_rows = plain_cpu.predict_q_many(xq, max_batch=MAX_BATCH)
-    mm_mod.launches = 0
-    dw_mod.launches = 0
+    reset_counts()
     single = cm.predict_q(xq[0])
     served = {b: cm.predict_q_many(xq[:b], max_batch=MAX_BATCH)
               for b in SERVE_BATCHES}
     torch.cuda.synchronize()
-    launches = {"qmatmul": mm_mod.launches, "qdwconv": dw_mod.launches}
+    launches = {k: v for k, v in launch_counts().items()
+                if k in LAUNCHES_PER_FORWARD}
     n_forwards = 1 + len(SERVE_BATCHES)
     check(launches == {k: v * n_forwards
                        for k, v in LAUNCHES_PER_FORWARD.items()},
@@ -434,6 +849,14 @@ def main() -> int:
                                       *(close(o, want_rows[:b])
                                         for b, o in served.items())),
           "ms_per_bucket_call": serve_ms})
+
+    # -- the second main path, counted ---------------------------------------
+    paging_launches = phase_paging(paged_models, fc256, float_speech)
+    launches.update({k: paging_launches[k]
+                     for k in ("paged_qmatmul", "fmatmul", "probe")})
+    speech_g, speech_xs = paged_models["speech"]
+    phase_routes([("person", qg, xq[:3], None),
+                  ("speech", speech_g, speech_xs[:3], PAGED["speech"][1])])
 
     # -- device trace over bucket-8 forwards --------------------------------
     from torch.profiler import ProfilerActivity, profile
@@ -461,22 +884,38 @@ def main() -> int:
           "top_device_ms": [[k[:80], round(v, 4)] for k, v in top],
           "script_s": round(time.perf_counter() - t_start, 3)})
 
+    # -- summary: per forward at bucket 1 (and 8) of the path each kernel is on
+    keys = ("ms", "plain_ms", "bound_ms", "library_ms", "call_ms")
+    paged_fwd = {b: [s for pc in paged_calls.values() for s in pc[b]]
+                 for b in (1, 8)}
+    fwd = {"qmatmul": (calls, "person"), "qdwconv": (calls, "person"),
+           "paged_qmatmul": (paged_fwd, "sine+speech+person (paged)"),
+           "fmatmul": (float_calls, "speech float")}
     kernels = []
-    for kname in ("qmatmul", "qdwconv"):
+    for kname in ("qmatmul", "qdwconv", "paged_qmatmul", "fmatmul"):
+        fcalls, model = fwd[kname]
+        errs = [measured[s]["max_abs_err"] for b in fcalls for s in fcalls[b]
+                if s[0] == kname]
         entry = {"name": kname, "route": "cuda",
                  "source": f"src/repro_torch/kernels/csrc/{kname}.cu",
                  "replaces": REPLACES[kname], "launches": launches[kname],
-                 "max_abs_err": max(m["max_abs_err"] for m in measured.values()
-                                    if m["kind"] == kname),
-                 "bucket": BUCKETS[0]}
-        for key in ("ms", "plain_ms", "bound_ms", "library_ms", "call_ms"):
-            entry[key] = per_forward(calls, measured, BUCKETS[0], kname, key)
-        by = [measured[s]["bound_by"] for s in calls[BUCKETS[0]] if s[0] == kname]
+                 "max_abs_err": max(errs), "per_forward_of": model,
+                 "bucket": 1}
+        for key in keys:
+            entry[key] = per_forward(fcalls, measured, 1, kname, key)
+        by = [measured[s]["bound_by"] for s in fcalls[1] if s[0] == kname]
         entry["bound_by"] = max(set(by), key=by.count)
         entry["per_forward_bucket8"] = {
-            key: per_forward(calls, measured, 8, kname, key)
-            for key in ("ms", "plain_ms", "bound_ms", "library_ms", "call_ms")}
+            key: per_forward(fcalls, measured, 8, kname, key) for key in keys}
         kernels.append(entry)
+    kernels.append({"name": "probe", "route": "cuda",
+                    "source": "src/repro_torch/kernels/csrc/probe.cu",
+                    "replaces": REPLACES["probe"],
+                    "launches": launches["probe"],
+                    "per_forward_of": "one launch per process",
+                    **{k: probe[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                             "bound_ms", "bound_by",
+                                             "library_ms", "call_ms")}})
 
     emit({"kernels": kernels})
     print(smi, flush=True)

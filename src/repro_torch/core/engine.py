@@ -3,11 +3,11 @@ counterpart, Sec. 3.3), running eagerly on a torch device.
 
 Everything resolved before the first inference lives in ONE object, the
 :class:`ExecutionPlan`: graph + folded Eq. (4)/(7)/(10) constants +
-compile-time ``LayoutPlan`` + route flag, with every constant (weights,
-biases, folded constants, pre-padded kernel operands) moved to the device
-once, when the plan is built. The per-call and the batched program are both
-produced by :meth:`ExecutionPlan.lower`, so routing and layout cannot drift
-between them. With the layout plan, kernel-routed ops exchange activations
+compile-time ``LayoutPlan`` + paging map + route flag, with every constant
+(weights, biases, folded constants, pre-padded kernel operands) moved to
+the device once, when the plan is built. The per-call and the batched
+program are both produced by :meth:`ExecutionPlan.lower`, so routing and
+layout cannot drift between them. With the layout plan, kernel-routed ops exchange activations
 in lane-padded layout: padding at graph entry, slicing at graph outputs and
 non-kernel boundaries.
 
@@ -16,10 +16,17 @@ dimension. Each batch is zero-filled up to its power-of-two bucket — fused
 with the planned entry lane pad into one staged device buffer — so rows are
 bit-identical to batch-1 calls. ``predict_q_many`` chunks large batches on
 bucket boundaries.
+
+Degradation chain: :meth:`CompiledModel.routes` lists the routes a model
+can serve, primary first (``"kernels"`` → ``"compiled"`` → ``"reference"``;
+serving's port maps the reference's ``"pallas"`` to ``"kernels"``), and
+:meth:`CompiledModel.predict_q_routed` runs a batch on any of them with
+bit-identical rows.
 """
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import Optional
 
 import numpy as np
@@ -28,6 +35,8 @@ import torch
 from . import graph as G
 from . import registry as R
 from .device import resolve_device
+from .memory import memory_report
+from .ops_ref import fused_bounds_f32
 from .preprocess import LayoutPlan, plan_layout, preprocess_graph
 
 
@@ -39,22 +48,38 @@ class ExecutionPlan:
     graph: G.Graph
     folded: dict                  # op index -> FoldedConsts (device tensors)
     layout: Optional[LayoutPlan]  # device tensors; None without the plan
+    paged: dict                   # op index -> n_pages (Sec. 4.3)
     use_kernels: bool
     device: torch.device
     consts: dict                  # const tensor id -> device tensor
+    bounds: dict                  # paged op index -> float32 (lo, hi)
 
     @classmethod
     def build(cls, g: G.Graph, use_kernels: bool = True,
-              layout_plan: bool = True, device="cuda") -> "ExecutionPlan":
+              layout_plan: bool = True, device="cuda",
+              paged: Optional[dict] = None) -> "ExecutionPlan":
+        """Fold, plan and move every constant to ``device``. On a CUDA
+        device the kernel route first probes the card
+        (``kernels.ops.can_launch_kernels``) and raises with its reason."""
         g.validate()
         dev = resolve_device(device)
+        if use_kernels and dev.type == "cuda":
+            from repro_torch.kernels.ops import can_launch_kernels
+            ok, reason = can_launch_kernels()
+            if not ok:
+                raise RuntimeError(f"the kernel route cannot run on {dev}: "
+                                   f"{reason}")
         folded = preprocess_graph(g)  # compile-time parser phase, on the host
-        layout = (plan_layout(g, folded).to(dev)
+        paged = dict(paged or {})
+        layout = (plan_layout(g, folded, paged=paged).to(dev)
                   if (use_kernels and layout_plan) else None)
         consts = {tid: torch.as_tensor(t.data, device=dev)
                   for tid, t in enumerate(g.tensors) if t.is_const}
+        bounds = {i: fused_bounds_f32(folded[i],
+                                      g.ops[i].attrs.get("fused", "NONE"))
+                  for i in paged if i in folded}
         return cls(g, {i: fc.to(dev) for i, fc in folded.items()}, layout,
-                   use_kernels, dev, consts)
+                   paged, use_kernels, dev, consts, bounds)
 
     def entry_shape(self, tid) -> tuple:
         """Per-sample physical shape graph input ``tid`` is staged in on the
@@ -78,7 +103,8 @@ class ExecutionPlan:
         lead = (slice(None),) if batched else ()
         ctxs = [R.OpContext(g, op, i, folded=self.folded.get(i),
                             use_kernels=self.use_kernels,
-                            layout=layouts.get(i))
+                            n_pages=self.paged.get(i), layout=layouts.get(i),
+                            bounds=self.bounds.get(i))
                 for i, op in enumerate(g.ops)]
         consts = self.consts
 
@@ -144,22 +170,31 @@ class CompiledModel:
     """The user-facing ``predict()`` of a quantized graph on a torch device.
 
     ``use_kernels`` — the counterpart of the reference's ``use_pallas``:
-    route quantized FullyConnected / Conv2D / DepthwiseConv through the
-    hand-written CUDA kernels (``repro_torch.kernels``; their plain PyTorch
-    versions on ``device="cpu"``). ``False`` runs the plain folded route.
+    route quantized FullyConnected / Conv2D / DepthwiseConv (and the float
+    FullyConnected product) through the hand-written CUDA kernels
+    (``repro_torch.kernels``; their plain PyTorch versions on
+    ``device="cpu"``). ``False`` runs the plain folded route.
     ``layout_plan`` — on by default; ``False`` keeps the per-call pad/slice
-    route of the kernel wrappers. ``device`` — ``"cuda"`` by default; raises
-    when CUDA is absent instead of moving to the CPU.
+    route of the kernel wrappers. ``paged`` — ``{op_index: n_pages}``: run
+    those FullyConnected layers page by page (Sec. 4.3), on the
+    ``paged_qmatmul`` kernel with ``use_kernels`` on the card, bounding
+    resident weight bytes; outputs are bit-identical. ``device`` —
+    ``"cuda"`` by default; raises when CUDA is absent instead of moving to
+    the CPU.
 
     Results are numpy arrays in the graph's dtypes.
     """
 
     def __init__(self, g: G.Graph, use_kernels: bool = True,
-                 layout_plan: bool = True, device="cuda"):
+                 layout_plan: bool = True, device="cuda",
+                 paged: Optional[dict] = None):
         self.exec_plan = ExecutionPlan.build(g, use_kernels, layout_plan,
-                                             device)
+                                             device, paged)
         self._fn = self.exec_plan.lower()
         self._batched_fn = self.exec_plan.lower(batched=True)
+        self._fallback = None   # use_kernels=False sibling ("compiled")
+        self._reference = None  # Interpreter ("reference")
+        self._lock = threading.Lock()  # lazy routes; the arena is stateful
 
     @property
     def graph(self) -> G.Graph:
@@ -174,8 +209,15 @@ class CompiledModel:
         return self.exec_plan.use_kernels
 
     @property
+    def paged(self) -> dict:
+        return self.exec_plan.paged
+
+    @property
     def plan(self) -> Optional[LayoutPlan]:
         return self.exec_plan.layout
+
+    def memory_report(self):
+        return memory_report(self.graph)
 
     # -- inference ---------------------------------------------------------
     def _is_batched(self, first_input) -> bool:
@@ -240,6 +282,86 @@ class CompiledModel:
             chunks.append(out if isinstance(out, tuple) else (out,))
         return _single(tuple(np.concatenate([c[i] for c in chunks])
                              for i in range(len(chunks[0]))))
+
+    # -- route-selectable dispatch (serving degradation chain) -------------
+    def routes(self) -> tuple:
+        """Dispatch routes this model can serve, primary first:
+
+        * ``"kernels"`` — the hand-written CUDA kernel route (only when
+          built with ``use_kernels=True``; then the primary);
+        * ``"compiled"`` — the plain folded route (the primary without
+          kernels, otherwise the first fallback: a ``use_kernels=False``
+          sibling of the same graph, paging map and device);
+        * ``"reference"`` — the :class:`~repro_torch.core.interpreter.
+          Interpreter`, row by row: nothing folded, shared with the other
+          routes only through the op registry.
+
+        All routes give bit-identical rows on quantized graphs."""
+        return (("kernels", "compiled", "reference") if self.use_kernels
+                else ("compiled", "reference"))
+
+    def _fallback_compiled(self) -> "CompiledModel":
+        with self._lock:
+            if self._fallback is None:
+                self._fallback = CompiledModel(
+                    self.graph, use_kernels=False, device=self.device,
+                    paged=self.paged)
+        return self._fallback
+
+    def _reference_interp(self):
+        with self._lock:
+            if self._reference is None:
+                from .interpreter import Interpreter
+                self._reference = Interpreter(self.graph, device=self.device)
+        return self._reference
+
+    def _predict_q_reference(self, inputs):
+        """Row-by-row interpreter execution of a batched input. The
+        interpreter's arena is reused across rows, so calls serialize."""
+        arrs = [np.asarray(a) for a in inputs]
+        if arrs[0].shape[0] == 0:
+            return self._empty_rows()
+        interp = self._reference_interp()
+        rows = []
+        with self._lock:
+            for i in range(arrs[0].shape[0]):
+                out = interp.invoke_q(*(a[i] for a in arrs))
+                rows.append(out if isinstance(out, tuple) else (out,))
+        return _single(tuple(np.stack([r[i] for r in rows])
+                             for i in range(len(rows[0]))))
+
+    def predict_q_routed(self, *inputs, route: Optional[str] = None,
+                         max_batch: Optional[int] = None):
+        """Batched ``predict_q_many`` on an explicit route: ``None`` or the
+        primary route is ``predict_q_many`` itself, ``"compiled"`` the plain
+        sibling, ``"reference"`` the interpreter row by row."""
+        names = self.routes()
+        if route is None or route == names[0]:
+            return self.predict_q_many(*inputs, max_batch=max_batch)
+        if route == "compiled":
+            return self._fallback_compiled().predict_q_many(
+                *inputs, max_batch=max_batch)
+        if route == "reference":
+            return self._predict_q_reference(inputs)
+        raise ValueError(f"unknown route {route!r}; available: {names}")
+
+    def warmup_routes(self, max_batch: int) -> "CompiledModel":
+        """Warm every degradation route before serving: a zero-filled batch
+        at each bucket up to ``max_batch``'s through the primary route and
+        the compiled fallback (building kernel libraries, the fallback's
+        device constants and the card's library handles), and the reference
+        interpreter's arena, so a degraded request pays no set-up."""
+        top = bucket_for(max_batch)
+        for route in self.routes()[:-1]:
+            b = 1
+            while b <= top:
+                self.predict_q_routed(*(
+                    np.zeros((b,) + tuple(self.graph.tensor(t).shape),
+                             np.dtype(self.graph.tensor(t).dtype))
+                    for t in self.graph.inputs), route=route)
+                b *= 2
+        self._reference_interp()
+        return self
 
     def predict(self, *inputs):
         """Float in / float out (TFLite-style interface), with or without a

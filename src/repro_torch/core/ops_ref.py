@@ -112,6 +112,16 @@ def clamp_bounds(fc: FoldedConsts, fused: str):
     raise ValueError(fused)
 
 
+def fused_bounds_f32(fc: FoldedConsts, fused: str):
+    """The float32 values of :func:`_fused_bounds` as Python floats, computed
+    on the host: the bounds the paged kernel route hands its kernel, so that
+    it clamps exactly where the plain paged route does."""
+    cpu = torch.empty(0)
+    lo, hi = _fused_bounds(fused, torch.as_tensor(fc.z_y).cpu(),
+                           torch.as_tensor(fc.s_y).cpu(), cpu)
+    return float(lo), float(hi)
+
+
 def _apply_fused_float(y, fused: str):
     if fused == "RELU":
         return torch.clamp(y, min=0.0)
@@ -191,10 +201,11 @@ def fully_connected_folded(x_q, w_q, fc: FoldedConsts, fused: str = "NONE"):
     return _requant(inner, fc.bias_term, fc.rescale, fused, fc.z_y, fc.s_y)
 
 
-def fully_connected_f(x, w, b, fused: str = "NONE"):
-    """Float path, Eq. (2)."""
+def fully_connected_f(x, w, b, fused: str = "NONE", matmul=None):
+    """Float path, Eq. (2). ``matmul`` replaces ``x @ w`` (the kernel
+    route passes ``kernels.ops.fmatmul``)."""
     _no_tf32(x)
-    y = x @ w
+    y = x @ w if matmul is None else matmul(x, w)
     if b is not None:
         y = y + b
     return _apply_fused_float(y, fused)

@@ -131,20 +131,26 @@ class LayoutPlan:
             self, layouts={i: lay.to(device) for i, lay in self.layouts.items()})
 
 
-def plan_layout(g: G.Graph, folded: dict, quantum: int = MXU_LANES) -> LayoutPlan:
+def plan_layout(g: G.Graph, folded: dict, quantum: int = MXU_LANES,
+                paged=None) -> LayoutPlan:
     """One compile-time walk assigning lane-padded physical layouts.
 
     An op is planned iff it takes the kernel route in the compiled engine
-    (quantized + folded + a registered ``lower_kernel``). ``quantum`` is the
+    (quantized + folded + a registered ``lower_kernel`` + not in ``paged``:
+    paging wins, as in ``registry.run_compiled``, and a paged op's planned
+    producer hands it a logical view). ``quantum`` is the
     lane multiple that channels, FC columns and FC rows are padded to; the
     kernels take multiples of 64. Exactness rests on two invariants: planned
     kernels zero their padding lanes, and SAME borders carry z_X only on
     real lanes.
     """
+    paged = paged or {}
     layouts, phys = {}, {}
     for i, op in enumerate(g.ops):
         fc = folded.get(i)
-        if fc is None or registry.get(op.op).lower_kernel is None:
+        if fc is None or paged.get(i):
+            continue
+        if registry.get(op.op).lower_kernel is None:
             continue
         w_t = g.tensor(op.inputs[1])
         y_t = g.tensor(op.outputs[0])
@@ -204,3 +210,12 @@ def _planned_consts(fc: FoldedConsts, n: int, n_pad: int) -> tuple:
             _grow_const(fc.w_sum_zx, n, n_pad, np.int32),
             _grow_const(fc.const_off, n, n_pad, np.int32),
             _grow_const(fc.z_w, n, n_pad, np.int32))
+
+
+def folded_const_bytes(folded: dict) -> int:
+    """Bytes of the compile-time constants the engine keeps."""
+    total = 0
+    for fc in folded.values():
+        for arr in (fc.bias_term, fc.rescale, fc.w_sum_zx, fc.const_off):
+            total += np.asarray(arr).nbytes
+    return total

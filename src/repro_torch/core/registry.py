@@ -13,8 +13,14 @@ Each operator registers exactly one :class:`OpDescriptor`:
     The hand-written CUDA kernel route of the compiled engine (the
     counterpart of the reference's ``lower_pallas``); on a CPU tensor the
     kernel wrappers run their plain PyTorch versions.
+``lower_kernel_float``
+    The kernel route of a float op (port only: FULLY_CONNECTED's product on
+    the ``fmatmul`` kernel, the reference's "float FC path" of ``fmatmul``).
 ``lower_paged``
-    The paged route (Sec. 4.3) — not ported yet, ``None`` everywhere.
+    The paged route (Sec. 4.3), FULLY_CONNECTED only: the ``paged_qmatmul``
+    kernel with ``use_kernels`` on a CUDA tensor, else the plain page loop
+    of ``core.paging``. It wins over the kernel route (paging bounds
+    resident weight bytes).
 ``batched``
     How the op runs with one extra leading batch dimension.
 ``weight_axis`` / ``w_sum_axes`` / ``w_count_axes``
@@ -33,6 +39,7 @@ import torch
 from . import graph as G
 from . import ops_ref as K
 from .device import resolve_device
+from .paging import paged_fc_folded
 
 
 class InferError(ValueError):
@@ -74,10 +81,12 @@ def weighted_qparams(ctx: "OpContext", b):
 class OpContext:
     """Everything a lowering needs about one op instance.
 
-    ``folded``/``use_kernels`` are compiled-engine routing state (the
-    reference path ignores them); ``use_kernels`` is the counterpart of the
-    reference's ``use_pallas``. ``layout`` is the compile-time padded layout
-    from ``preprocess.plan_layout``.
+    ``folded``/``use_kernels``/``n_pages`` are compiled-engine routing state
+    (the reference path ignores them); ``use_kernels`` is the counterpart of
+    the reference's ``use_pallas``. ``layout`` is the compile-time padded
+    layout from ``preprocess.plan_layout``. ``bounds`` holds a paged op's
+    float32 clamp bounds, computed on the host when the engine is built, so
+    the paged kernel route reads no device scalar per call.
     """
 
     g: G.Graph
@@ -85,7 +94,9 @@ class OpContext:
     index: int = 0
     folded: Optional[K.FoldedConsts] = None
     use_kernels: bool = False
+    n_pages: Optional[int] = None
     layout: Optional[object] = None  # preprocess.OpLayout
+    bounds: Optional[tuple] = None   # (lo, hi) of a paged op
 
     def t_in(self, j: int) -> G.TensorSpec:
         return self.g.tensor(self.op.inputs[j])
@@ -115,6 +126,7 @@ class OpDescriptor:
     eval_reference: Callable
     lower_compiled: Optional[Callable] = None
     lower_kernel: Optional[Callable] = None
+    lower_kernel_float: Optional[Callable] = None
     lower_paged: Optional[Callable] = None
     batched: Optional[Callable] = None
     weight_axis: Optional[int] = None   # per-channel PTQ axis of inputs[1]
@@ -158,12 +170,16 @@ def run_reference(ctx: OpContext, vals):
 
 
 def run_compiled(ctx: OpContext, vals):
-    """Compiled/MicroFlow path: the kernel route when asked for and
-    registered, else the plain folded route."""
+    """Compiled/MicroFlow path with paged > kernel > plain route priority
+    (paging bounds resident bytes, so it wins when both are requested)."""
     d = get(ctx.op.op)
     if ctx.is_q and ctx.folded is not None:
+        if ctx.n_pages and d.lower_paged is not None:
+            return d.lower_paged(ctx, *vals)
         if ctx.use_kernels and d.lower_kernel is not None:
             return d.lower_kernel(ctx, *vals)
+    elif not ctx.is_q and ctx.use_kernels and d.lower_kernel_float is not None:
+        return d.lower_kernel_float(ctx, *vals)
     fn = d.lower_compiled or d.eval_reference
     return fn(ctx, *vals)
 
@@ -381,11 +397,27 @@ def _fc_kernel(ctx, x, w, b=None):
     return kernel_ops.qmatmul_folded(x, w, ctx.folded, ctx.fused)
 
 
+def _fc_kernel_float(ctx, x, w, b=None):
+    from repro_torch.kernels import ops as kernel_ops
+    return K.fully_connected_f(x, w, b, ctx.fused, matmul=kernel_ops.fmatmul)
+
+
+def _fc_paged(ctx, x, w, b=None):
+    n = w.shape[1]
+    assert n % ctx.n_pages == 0, (n, ctx.n_pages)
+    if ctx.use_kernels and x.is_cuda:
+        from repro_torch.kernels import ops as kernel_ops
+        return kernel_ops.paged_fc(x, w, ctx.folded, ctx.n_pages, *ctx.bounds)
+    return paged_fc_folded(x, w, ctx.folded, ctx.n_pages, ctx.fused)
+
+
 register(
     G.FULLY_CONNECTED,
     eval_reference=_fc_reference,
     lower_compiled=_fc_compiled,
     lower_kernel=_fc_kernel,
+    lower_kernel_float=_fc_kernel_float,
+    lower_paged=_fc_paged,
     batched=_fc_batched,
     infer=_fc_infer,
     weight_axis=1,

@@ -22,7 +22,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
-SOURCES = ("qmatmul", "qdwconv")
+SOURCES = ("qmatmul", "qdwconv", "paged_qmatmul", "fmatmul", "probe")
 
 _LIBS: dict = {}  # name -> loaded ctypes library (one per process)
 

@@ -1,31 +1,75 @@
 """Public wrappers around the hand-written kernels — the port of
-``repro.kernels.ops`` (without the paged route and the Pallas probe).
+``repro.kernels.ops``.
 
 Two families of entry points, with the JAX package's shapes:
 
 * ``*_folded`` — the per-call route: logical-shape int8 in/out. Each call
-  pads its operands to the kernel's tile and slices the result back.
+  pads its operands to the kernel's tile and slices the result back;
+  ``qmatmul_folded(paged=True)`` runs the paged kernel (Sec. 4.3) instead.
 * ``*_planned`` — the graph-planned route (``preprocess.plan_layout``):
   weights and folded constants arrive pre-padded (and, inside an engine,
   already on the device), the activation arrives lane-padded (padded here
   only at graph entry), and the output stays padded with its padding lanes
   zeroed by the kernel.
 
-Both families pre-pad SAME borders with the input zero point. On CPU
-tensors the kernels' plain versions run; on CUDA tensors the kernels.
+Both families pre-pad SAME borders with the input zero point. Besides them:
+``paged_fc`` (the engine's paged route on logical shapes), ``fmatmul`` (the
+float FullyConnected product) and ``can_launch_kernels`` (the probe that
+builds and launches a trivial kernel once and says why the kernel route is
+unavailable). On CPU tensors the kernels' plain versions run; on CUDA
+tensors the kernels.
 """
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.ops_ref import (FoldedConsts, clamp_bounds, pad_input_q,
-                                      round_up, same_pads)
+from repro_torch.core.ops_ref import (FoldedConsts, MXU_LANES, clamp_bounds,
+                                      pad_input_q, round_up, same_pads)
+from . import _build
+from . import paged_matmul as _pm
 from . import qconv as _qc
 from . import qdwconv as _dw
 from . import qmatmul as _qm
 
 TILE = _qm.TILE
+LANE = MXU_LANES
+
+#: Launches of the probe kernel so far in this process (at most one per
+#: cache fill of :func:`can_launch_kernels`).
+probe_launches = 0
+
+
+@functools.cache
+def can_launch_kernels():
+    """Probe, once per process (cached), whether the kernel route can run
+    here: build ``csrc/probe.cu`` with nvcc, launch it on an (8, 128)
+    float32 block of zeros and check that it returns ones. Returns
+    ``(True, None)``, or ``(False, "<reason>")`` without raising (no card,
+    no nvcc, a refused launch, a wrong result). The twin of the reference's
+    ``can_lower_noninterpret``; ``can_launch_kernels.cache_clear()`` probes
+    again."""
+    global probe_launches
+    try:
+        if not torch.cuda.is_available():
+            raise RuntimeError("torch.cuda.is_available() is False")
+        fn = _build.function("probe", "repro_probe",
+                             [ctypes.c_void_p] * 2
+                             + [ctypes.c_int, ctypes.c_void_p])
+        x = torch.zeros((8, LANE), dtype=torch.float32, device="cuda")
+        out = torch.empty_like(x)
+        _build.launch_check("probe", fn(_build.ptr(x, 4), _build.ptr(out, 4),
+                                        x.numel(), _build.cuda_stream(x)))
+        probe_launches += 1
+        if not bool((out == 1).all()):  # synchronizes: faults surface here
+            raise RuntimeError("probe kernel returned a wrong result")
+        return True, None
+    except Exception as e:  # no card / no nvcc / refused launch / ...
+        msg = f"{type(e).__name__}: {e}"
+        return False, " ".join(msg.split())[:200]
 
 
 def _pad2(a, m0: int, m1: int):
@@ -65,18 +109,63 @@ def _n_true(lay):
 # FULLY_CONNECTED
 # ---------------------------------------------------------------------------
 
-def qmatmul_folded(x_q, w_q, fc: FoldedConsts, fused: str = "NONE"):
+def qmatmul_folded(x_q, w_q, fc: FoldedConsts, fused: str = "NONE", *,
+                   paged: bool = False, page: int = LANE):
     """Folded Eq. (3) on the qmatmul kernel, logical shapes in and out. Any
-    leading x rank: (..., K) @ (K, N) runs as one 2-D product."""
+    leading x rank: (..., K) @ (K, N) runs as one 2-D product. ``paged``
+    runs the paged kernel instead, with M, K, N padded to 128 as the
+    reference pads them, so ``page`` must divide the padded N."""
     lead = tuple(x_q.shape[:-1])
     x_q = x_q.reshape(-1, x_q.shape[-1])
     m = x_q.shape[0]
     n = w_q.shape[1]
     lo, hi = clamp_bounds(fc, fused)
-    xp = _pad2(x_q, TILE, TILE).contiguous()
-    wp = _pad2(w_q, TILE, TILE).contiguous()
+    quantum = LANE if paged else TILE
+    xp = _pad2(x_q, quantum, quantum).contiguous()
+    wp = _pad2(w_q, quantum, quantum).contiguous()
     consts = _pad_channel_consts(fc, n, wp.shape[1], x_q.device)
-    out = _qm.qmatmul(xp, wp, *consts, lo=lo, hi=hi)
+    if paged:
+        out = _pm.paged_qmatmul(xp, wp, *consts, page=page, lo=lo, hi=hi)
+    else:
+        out = _qm.qmatmul(xp, wp, *consts, lo=lo, hi=hi)
+    return out[:m, :n].reshape(lead + (n,))
+
+
+def _channel(v, n: int, dtype, device):
+    """A folded constant as a contiguous (n,) tensor: a no-op for one that
+    is already per channel on the device."""
+    t = torch.as_tensor(v, dtype=dtype, device=device).reshape(-1)
+    return t if t.numel() == n else t.expand(n).contiguous()
+
+
+def paged_fc(x_q, w_q, fc: FoldedConsts, n_pages: int, lo: float, hi: float):
+    """The compiled engine's paged FullyConnected on the paged kernel:
+    logical (..., K) x (K, N) int8 as they are, no padding, ``page`` =
+    N // n_pages. ``lo``/``hi`` are the float32 bounds of the plain paged
+    route (``ops_ref.fused_bounds_f32``), so both routes clamp alike."""
+    lead = tuple(x_q.shape[:-1])
+    n = w_q.shape[1]
+    dev = x_q.device
+    consts = tuple(_channel(v, n, dt, dev) for v, dt in (
+        (fc.bias_term, torch.float32), (fc.rescale, torch.float32),
+        (fc.w_sum_zx, torch.int32), (fc.const_off, torch.int32),
+        (fc.z_w, torch.int32)))
+    out = _pm.paged_qmatmul(x_q.reshape(-1, x_q.shape[-1]).contiguous(),
+                            w_q.contiguous(), *consts, page=n // n_pages,
+                            lo=lo, hi=hi)
+    return out.reshape(lead + (n,))
+
+
+def fmatmul(x, w):
+    """Float matmul on the fmatmul kernel (the float FullyConnected path):
+    operands padded to 128 as the reference pads them, the result sliced
+    back. Any leading x rank: (..., K) @ (K, N) runs as one 2-D product."""
+    lead = tuple(x.shape[:-1])
+    x = x.reshape(-1, x.shape[-1])
+    m = x.shape[0]
+    n = w.shape[1]
+    out = _qm.fmatmul(_pad2(x, LANE, LANE).contiguous(),
+                      _pad2(w, LANE, LANE).contiguous())
     return out[:m, :n].reshape(lead + (n,))
 
 

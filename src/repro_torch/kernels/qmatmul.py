@@ -1,11 +1,13 @@
-"""Quantized int8 matmul — the FullyConnected hot-spot (Eq. 3) on the card.
+"""Quantized int8 matmul — the FullyConnected hot-spot (Eq. 3) on the card —
+and the float matmul of the float FullyConnected path.
 
-Port of ``repro.kernels.qmatmul.qmatmul``. The kernel is hand-written CUDA
-C++ for sm_90a (``csrc/qmatmul.cu``; its header note gives the design);
-:func:`qmatmul` checks its operands, allocates the output and launches it
-for CUDA tensors, and runs the plain version (``ref.qmatmul_ref``) for CPU
-tensors. There is no other route: a CUDA tensor launches the kernel or
-raises.
+Port of ``repro.kernels.qmatmul.qmatmul`` and ``fmatmul``. The kernels are
+hand-written CUDA C++ for sm_90a (``csrc/qmatmul.cu``, ``csrc/fmatmul.cu``;
+their header notes give the designs). :func:`qmatmul` and :func:`fmatmul`
+check their operands, allocate the output and launch the kernel for CUDA
+tensors, and run the plain versions (``ref.qmatmul_ref``,
+``ref.fmatmul_ref``) for CPU tensors. There is no other route: a CUDA
+tensor launches the kernel or raises.
 """
 from __future__ import annotations
 
@@ -16,7 +18,7 @@ import torch
 
 from . import _build
 from ._build import check_operands, cuda_stream, ptr
-from .ref import qmatmul_ref
+from .ref import fmatmul_ref, qmatmul_ref
 
 #: M, K and N must be multiples of the kernel's tile.
 TILE = 64
@@ -27,12 +29,20 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: per launch and nowhere else (the plain version on CPU tensors does not
 #: count).
 launches = 0
+#: The same count for the float kernel (:func:`fmatmul`).
+fmatmul_launches = 0
 
 
 @functools.cache
 def _kernel():
     return _build.function("qmatmul", "repro_qmatmul",
                            [_P] * 8 + [_I] * 3 + [_F, _F, _I, _P])
+
+
+@functools.cache
+def _fkernel():
+    return _build.function("fmatmul", "repro_fmatmul",
+                           [_P] * 3 + [_I] * 4 + [_P])
 
 
 def qmatmul(x_q, w_q, bias_term, rescale, w_sum_zx, const_off, z_w, *,
@@ -67,4 +77,29 @@ def qmatmul(x_q, w_q, bias_term, rescale, w_sum_zx, const_off, z_w, *,
         cuda_stream(x_q))
     _build.launch_check("qmatmul", err)
     launches += 1
+    return out
+
+
+def fmatmul(x, w):
+    """x (M, K) @ w (K, N), both float32 or both bfloat16 -> (M, N) in that
+    dtype, accumulated in float32 (IEEE, never TF32). M and N must be
+    multiples of :data:`TILE`, K a multiple of 32 (``ops`` pads)."""
+    global fmatmul_launches
+    m, k = x.shape
+    n = w.shape[1]
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"fmatmul: float32 or bfloat16 only, got {x.dtype}")
+    check_operands("fmatmul", dict(x=x, w=w),
+                   dict(x=(x.dtype, (m, k)), w=(x.dtype, (k, n))))
+    if m % TILE or n % TILE or k % 32 or m == 0 or n == 0 or k == 0:
+        raise ValueError(f"fmatmul: M, N must be positive multiples of {TILE} "
+                         f"and K of 32, got {(m, k, n)}")
+    if x.device.type == "cpu":
+        return fmatmul_ref(x, w)
+    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    size = x.element_size()
+    err = _fkernel()(ptr(x, size), ptr(w, size), ptr(out, size), m, n, k,
+                     int(x.dtype == torch.bfloat16), cuda_stream(x))
+    _build.launch_check("fmatmul", err)
+    fmatmul_launches += 1
     return out

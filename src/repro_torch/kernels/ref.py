@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.ops_ref import I8_MAX, I8_MIN, dw_acc, imatmul
+from repro_torch.core.ops_ref import I8_MAX, I8_MIN, _no_tf32, dw_acc, imatmul
 
 
 def _row(v, n: int, dtype, like: torch.Tensor) -> torch.Tensor:
@@ -50,6 +50,35 @@ def qmatmul_ref(x_q, w_q, bias_term, rescale, w_sum_zx, const_off, z_w, *,
     sum_x = x32.sum(-1, keepdim=True, dtype=torch.int32)
     return _requant(acc, sum_x, bias_term, rescale, w_sum_zx, const_off, z_w,
                     lo, hi, n_true)
+
+
+def paged_qmatmul_ref(x_q, w_q, bias_term, rescale, w_sum_zx, const_off,
+                      z_w, *, page, lo=float("-inf"), hi=float("inf")):
+    """Plain version of ``kernels.paged_matmul.paged_qmatmul``: the same
+    folded FC as :func:`qmatmul_ref`, one (K, page) weight page at a time;
+    N % page == 0."""
+    n = w_q.shape[1]
+    if page <= 0 or n % page:
+        raise ValueError(f"page {page} does not divide N = {n}")
+    x32 = x_q.to(torch.int32)
+    sum_x = x32.sum(-1, keepdim=True, dtype=torch.int32)
+    consts = [_row(v, n, dt, x32) for v, dt in zip(
+        (bias_term, rescale, w_sum_zx, const_off, z_w),
+        (torch.float32, torch.float32, torch.int32, torch.int32, torch.int32))]
+    pages = []
+    for j0 in range(0, n, page):
+        cols = slice(j0, j0 + page)
+        acc = imatmul(x32, w_q[:, cols])
+        pages.append(_requant(acc, sum_x, *(c[cols] for c in consts), lo, hi,
+                              None))
+    return torch.cat(pages, dim=-1)
+
+
+def fmatmul_ref(x, w):
+    """Plain version of ``kernels.qmatmul.fmatmul``: the product in float32
+    (full float32 on the card, never TF32), cast back to the input dtype."""
+    _no_tf32(x)
+    return (x.float() @ w.float()).to(x.dtype)
 
 
 def qdwconv_ref(x_q, w_q, bias_term, rescale, w_sum_zx, const_off, z_w, *,

@@ -80,3 +80,69 @@ def test_person_engine_on_card_equals_cpu_plain_route(gen):
     want = CompiledModel(qg, use_kernels=False, device="cpu").predict_q_many(xs)
     # softmax output: ±1 LSB (exp differs in the last ulp between devices)
     assert np.abs(got.astype(int) - want.astype(int)).max() <= 1
+
+
+@pytest.mark.parametrize("m,k,n,page", [(1, 1, 16, 1), (8, 16, 16, 1),
+                                        (8, 4000, 4, 1), (8, 256, 2, 1),
+                                        (4, 256, 256, 128), (4, 256, 256, 8),
+                                        (7, 45, 300, 150), (9, 333, 512, 512)])
+@pytest.mark.parametrize("lo,hi", [(float("-inf"), float("inf")), (-3.0, 57.7)])
+def test_paged_qmatmul_kernel_equals_plain(gen, m, k, n, page, lo, hi):
+    """The paged kernel at the paper models' paged shapes (sine, speech,
+    person at bucket 8), fc256's pages, an odd K and a page wider than
+    one staging slice."""
+    from repro_torch.kernels import paged_matmul as pm, ref
+    x, w, c = _operands(gen, (m, k), (k, n), n)
+    before = pm.launches
+    got = pm.paged_qmatmul(x, w, *c, page=page, lo=lo, hi=hi)
+    assert pm.launches == before + 1
+    torch.testing.assert_close(got, ref.paged_qmatmul_ref(
+        x, w, *c, page=page, lo=lo, hi=hi), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 5e-2)])
+@pytest.mark.parametrize("m,k,n", [(8, 16, 8), (130, 70, 33)])
+def test_fmatmul_kernel_within_tolerance(gen, dtype, tol, m, k, n):
+    from repro_torch.kernels import ops, qmatmul as mm, ref
+    assert not torch.backends.cuda.matmul.allow_tf32
+    x = torch.randn(m, k, generator=gen, device="cuda").to(dtype)
+    w = torch.randn(k, n, generator=gen, device="cuda").to(dtype)
+    before = mm.fmatmul_launches
+    got = ops.fmatmul(x, w)
+    assert mm.fmatmul_launches == before + 1
+    assert got.dtype == dtype
+    torch.testing.assert_close(got.float(), ref.fmatmul_ref(x, w).float(),
+                               rtol=tol, atol=tol)
+
+
+def test_probe_launches_on_the_card(gen):
+    from repro_torch.kernels import ops
+    ops.can_launch_kernels.cache_clear()
+    assert ops.can_launch_kernels() == (True, None)
+
+
+@pytest.mark.parametrize("name,paged", [("sine", {0: 16, 1: 16}),
+                                        ("speech", {2: 4})])
+def test_paged_engine_on_card_equals_cpu_plain_route(gen, name, paged):
+    from repro_torch.configs.paper_models import PAPER_MODELS
+    from repro_torch.core.engine import CompiledModel
+    from repro_torch.core.quantize import quantize_graph
+    from repro_torch.kernels import paged_matmul as pm
+    shape = {"sine": (1, 1), "speech": (1, 49, 40, 1)}[name]
+    rng = np.random.default_rng(1)
+    qg = quantize_graph(PAPER_MODELS[name](), [rng.normal(0, 1, shape)
+                                               .astype("f")], device="cuda")
+    xs = np.stack([qg.tensor(qg.inputs[0]).qparams.quantize(
+        rng.normal(0, 1, shape).astype("f")) for _ in range(5)])
+    cm = CompiledModel(qg, device="cuda", paged=paged)
+    before = pm.launches
+    got = cm.predict_q_many(xs, max_batch=4)
+    assert pm.launches == before + 2 * len(paged)  # buckets 4 and 1
+    want = CompiledModel(qg, use_kernels=False, device="cpu",
+                         paged=paged).predict_q_many(xs, max_batch=4)
+    assert np.abs(got.astype(int) - want.astype(int)).max() <= 1  # softmax
+    np.testing.assert_array_equal(got, CompiledModel(qg, device="cuda")
+                                  .predict_q_many(xs, max_batch=4))
+    for route in cm.routes():
+        np.testing.assert_array_equal(cm.predict_q_routed(xs, route=route), got)

@@ -29,7 +29,24 @@ def test_every_module_imports_without_jax_or_repro():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "", f"forbidden modules loaded: {out.stdout}"
-    assert len(MODULES) >= 15, MODULES
+    assert len(MODULES) >= 19, MODULES
+
+
+@pytest.mark.parametrize("module", [
+    "repro_torch.core.memory", "repro_torch.core.paging",
+    "repro_torch.core.interpreter", "repro_torch.kernels.paged_matmul"])
+def test_paged_route_modules_import_alone(module):
+    """Each module of the paged route and the reference route, imported
+    first and alone, loads neither JAX nor the JAX package."""
+    assert module in MODULES
+    code = (f"import importlib, sys\nimportlib.import_module({module!r})\n"
+            "print(','.join(sorted(n for n in sys.modules\n"
+            "      if n.split('.')[0] in ('jax', 'jaxlib', 'repro'))))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "", f"forbidden modules loaded: {out.stdout}"
 
 
 _FORBIDDEN = re.compile(

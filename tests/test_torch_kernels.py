@@ -1,10 +1,13 @@
 """The kernels' plain versions and wrappers against the JAX package's Pallas
 kernels, run as the JAX tests run them on the CPU (``interpret=True``).
 
-Every comparison is bit-exact int8: the plain versions compute the
+Every int8 comparison is bit-exact: the plain versions compute the
 integer sums exactly and fuse the epilogue's multiply-add as the kernels
-do. On CPU tensors the wrappers must take the plain version (and count no
-launch); they must raise on operands the CUDA kernels do not take.
+do. ``fmatmul`` keeps the reference's tolerances (1e-5 in float32, 5e-2 in
+bfloat16: the sums run in another order). On CPU tensors the wrappers must
+take the plain version (and count no launch); they must raise on operands
+the CUDA kernels do not take. The paged kernel's cases are in
+``test_torch_paging.py``.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -15,6 +18,7 @@ from repro.core.ops_ref import FoldedConsts as JFolded
 from repro.kernels import ops as jops
 from repro.kernels.qconv import im2col_q as j_im2col
 from repro.kernels.qdwconv import qdwconv as j_qdwconv
+from repro.kernels.qmatmul import fmatmul as j_fmatmul
 from repro.kernels.qmatmul import qmatmul as j_qmatmul
 from repro_torch.core.ops_ref import FoldedConsts as TFolded, clamp_bounds
 from repro_torch.kernels import ops as tops
@@ -211,3 +215,112 @@ def test_qdwconv_wrapper_rejects(bad):
         x = x.to(torch.int16)
     with pytest.raises((ValueError, TypeError)):
         t_qdwconv(x, w, *cst, stride=(1, 1))
+
+
+# ---------------------------------------------------------------------------
+# fmatmul — the float FullyConnected product
+# ---------------------------------------------------------------------------
+
+def _float_operands(dtype, m, k, n, w_scale=1.0):
+    rng = np.random.default_rng(17)
+    x = rng.normal(size=(m, k)).astype(np.float32)
+    w = (rng.normal(size=(k, n)) * w_scale).astype(np.float32)
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    tdt = torch.float32 if dtype == "float32" else torch.bfloat16
+    return (jnp.asarray(x, jdt), jnp.asarray(w, jdt), t(x).to(tdt),
+            t(w).to(tdt))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m,k,n", [(8, 16, 8), (130, 70, 33)])
+def test_fmatmul_matches_reference(dtype, m, k, n):
+    """The reference's ``test_fmatmul_dtypes`` shapes, through both packages'
+    ``ops.fmatmul`` (JAX: the Pallas kernel in interpret mode)."""
+    jx, jw, tx, tw = _float_operands(dtype, m, k, n)
+    want = np.asarray(jops.fmatmul(jx, jw), np.float32)
+    before = mm_mod.fmatmul_launches
+    got = tops.fmatmul(tx, tw)
+    assert mm_mod.fmatmul_launches == before  # CPU tensors: the plain version
+    assert got.dtype == tx.dtype and tuple(got.shape) == (m, n)
+    tol = 1e-5 if dtype == "float32" else 5e-2
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m,k,n,w_scale", [(128, 128, 128, 1.0),
+                                           (128, 4096, 128, 0.05)])
+def test_fmatmul_ref_matches_pallas(dtype, m, k, n, w_scale):
+    """The plain version against the Pallas kernel at padded shapes. The
+    second is the speech model's float FC (8 x 4000 x 4 padded), with its
+    weights' scale (normal, sigma 0.05, as ``build_speech`` draws them)."""
+    jx, jw, tx, tw = _float_operands(dtype, m, k, n, w_scale)
+    want = np.asarray(j_fmatmul(jx, jw, interpret=True), np.float32)
+    got = ref.fmatmul_ref(tx, tw)
+    assert got.dtype == tx.dtype
+    tol = 1e-5 if dtype == "float32" else 5e-2
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("bad", ["int_dtype", "mixed_dtype", "m_tile",
+                                 "k_tile", "noncontig"])
+def test_fmatmul_wrapper_rejects(bad):
+    x, w = torch.zeros(64, 64), torch.zeros(64, 64)
+    if bad == "int_dtype":
+        x, w = x.to(torch.int8), w.to(torch.int8)
+    elif bad == "mixed_dtype":
+        w = w.to(torch.bfloat16)
+    elif bad == "m_tile":
+        x = torch.zeros(65, 64)
+    elif bad == "k_tile":
+        x, w = torch.zeros(64, 48), torch.zeros(48, 64)
+    elif bad == "noncontig":
+        x = torch.zeros(64, 128)[:, ::2]
+    with pytest.raises((ValueError, TypeError)):
+        mm_mod.fmatmul(x, w)
+
+
+def test_float_fc_kernel_route_matches_reference(tmp_path):
+    """A float graph with ``use_kernels`` runs its FullyConnected products on
+    ``fmatmul`` (the plain version here) and matches the JAX package's float
+    engine within the float32 tolerance, per call and per bucket."""
+    from repro.core import CompiledModel as JCompiled
+    from repro.core.builder import GraphBuilder
+    from repro_torch.core.engine import CompiledModel
+    from _torch_parity import carry
+
+    rng = np.random.default_rng(8)
+    b = GraphBuilder("float_mlp")
+    h = b.input("x", (2, 40))
+    for i, (k, n) in enumerate([(40, 70), (70, 3)]):
+        h = b.fully_connected(h, rng.normal(0, 0.3, (k, n)).astype("f"),
+                              rng.normal(0, 0.3, n).astype("f"),
+                              fused="RELU" if i == 0 else "NONE")
+    b.output(h)
+    jg = b.build()
+    tg = carry(jg, tmp_path)
+    xs = rng.normal(size=(5, 2, 40)).astype("f")
+    jm = JCompiled(jg)
+    cm = CompiledModel(tg, device="cpu")
+    assert cm.plan is not None and not cm.plan.layouts  # float: unplanned
+    np.testing.assert_allclose(cm.predict_q(xs[0]), np.asarray(jm.predict_q(xs[0])),
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(cm.predict_q_many(xs, max_batch=4),
+                               np.asarray(jm.predict_q_many(xs, max_batch=4)),
+                               rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the kernel-route probe
+# ---------------------------------------------------------------------------
+
+def test_can_launch_kernels_reports_why_not_here():
+    """No card here: the probe returns (False, reason) and does not raise;
+    the answer is cached, and the engine's kernel route on CUDA refuses to
+    build with that reason."""
+    tops.can_launch_kernels.cache_clear()
+    before = tops.probe_launches
+    ok, reason = tops.can_launch_kernels()
+    assert ok is False and isinstance(reason, str) and reason
+    assert len(reason) <= 200
+    assert tops.can_launch_kernels() == (ok, reason)
+    assert tops.probe_launches == before
