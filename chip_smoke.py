@@ -17,8 +17,12 @@ full width, with random weights from a seed:
               buckets 1 and 8; ``paged_qmatmul`` at every shape the paged
               engines launch plus the 256×256 FC at pages 2/8/32 (int8
               exact); ``fmatmul`` at (8,16,8), (130,70,33) and the speech
-              model's float FC, padded, in float32 (1e-5) and bfloat16
-              (5e-2). Kernel, plain and library times and the bound;
+              model's float FC as ``ops.fmatmul`` calls it, in float32
+              (1e-5) and bfloat16 (5e-2), two calls bit-identical. Kernel,
+              plain and library times and the bound; then three explicit
+              cases with ptxas' registers, shared memory and spills:
+              ``fmatmul`` at 128×4096×128 (float32, bfloat16) and
+              ``qmatmul`` at conv0's quantum-128 shape 18432×1152×128;
 5. layers   — person's kernel route walked op by op through the registry,
               each op fed the kernel route's own previous output and held
               against the plain route of the same op on a CPU copy of the
@@ -43,7 +47,8 @@ full width, with random weights from a seed:
               kernel and the device's busy share.
 
 Each phase prints one JSON line (the ``kernels`` phase lists every call it
-timed); then the ``kernels`` summary line, the nvidia-smi line, and last
+timed, and ``explicit`` the three explicit cases); then the ``kernels``
+summary line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises, and the script exits
 non-zero without the last line.
 """
@@ -52,6 +57,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -85,6 +91,10 @@ PAGED_BUCKETS = (1, 4, 8)
 FC256_PAGES = (2, 8, 32)
 FMATMUL_SHAPES = ((8, 16, 8), (130, 70, 33))
 FMATMUL_TOL = {"float32": 1e-5, "bfloat16": 5e-2}
+# the explicit cases: fmatmul at PR 12's padded float speech FC, and qmatmul
+# at person conv0's bucket-8 shape in the quantum-128 layout
+FMATMUL_EXPLICIT = (128, 4096, 128)
+QMATMUL_EXPLICIT = (18432, 1152, 128)
 
 
 def emit(obj) -> None:
@@ -162,48 +172,64 @@ def host_ms(fn, reps: int = 20) -> float:
 def record_calls(cm, xs_by_bucket):
     """Run one forward per bucket through ``predict_q_many`` and record each
     kernel call's signature (kind, shapes, bounds or dtype, lane mask or
-    page, stride)."""
-    from repro_torch.kernels import paged_matmul as pm_mod
-    from repro_torch.kernels import qdwconv as dw_mod
-    from repro_torch.kernels import qmatmul as mm_mod
-
+    page, stride). ``cm`` may also be any callable of one batch."""
     calls = {b: [] for b in xs_by_bucket}
-    current = []
-    orig = (mm_mod.qmatmul, dw_mod.qdwconv, pm_mod.paged_qmatmul,
-            mm_mod.fmatmul)
-
-    def mm(x, w, *consts, lo, hi, n_true=None):
-        current.append(("qmatmul", tuple(x.shape), tuple(w.shape), lo, hi,
-                        n_true, None))
-        return orig[0](x, w, *consts, lo=lo, hi=hi, n_true=n_true)
-
-    def dw(x, w, *consts, stride, lo, hi, c_true=None):
-        current.append(("qdwconv", tuple(x.shape), tuple(w.shape), lo, hi,
-                        c_true, tuple(stride)))
-        return orig[1](x, w, *consts, stride=stride, lo=lo, hi=hi,
-                       c_true=c_true)
-
-    def pm(x, w, *consts, page, lo, hi):
-        current.append(("paged_qmatmul", tuple(x.shape), tuple(w.shape), lo,
-                        hi, page, None))
-        return orig[2](x, w, *consts, page=page, lo=lo, hi=hi)
-
-    def fm(x, w):
-        current.append(("fmatmul", tuple(x.shape), tuple(w.shape),
-                        str(x.dtype).removeprefix("torch."), None, None, None))
-        return orig[3](x, w)
-
-    mm_mod.qmatmul, dw_mod.qdwconv, pm_mod.paged_qmatmul, mm_mod.fmatmul = (
-        mm, dw, pm, fm)
-    try:
+    run = cm if callable(cm) else (
+        lambda xs: cm.predict_q_many(xs, max_batch=MAX_BATCH))
+    with recording() as current:
         for b, xs in xs_by_bucket.items():
             current.clear()
-            cm.predict_q_many(xs, max_batch=MAX_BATCH)
+            run(xs)
             calls[b] = list(current)
-    finally:
-        (mm_mod.qmatmul, dw_mod.qdwconv, pm_mod.paged_qmatmul,
-         mm_mod.fmatmul) = orig
     return calls
+
+
+class recording:
+    """Within ``with recording() as calls:`` every kernel wrapper call
+    appends its signature to ``calls`` (the launch still happens). A
+    ``qmatmul`` signature's w shape is (N, K): the kernel takes the weight
+    transposed."""
+
+    def __enter__(self):
+        from repro_torch.kernels import paged_matmul as pm_mod
+        from repro_torch.kernels import qdwconv as dw_mod
+        from repro_torch.kernels import qmatmul as mm_mod
+        self.mods = (mm_mod, dw_mod, pm_mod)
+        current = []
+        orig = self.orig = (mm_mod.qmatmul, dw_mod.qdwconv,
+                            pm_mod.paged_qmatmul, mm_mod.fmatmul)
+
+        def mm(x, w, *consts, lo, hi, n_true=None):
+            current.append(("qmatmul", tuple(x.shape), tuple(w.shape), lo, hi,
+                            n_true, None))
+            return orig[0](x, w, *consts, lo=lo, hi=hi, n_true=n_true)
+
+        def dw(x, w, *consts, stride, lo, hi, c_true=None):
+            current.append(("qdwconv", tuple(x.shape), tuple(w.shape), lo, hi,
+                            c_true, tuple(stride)))
+            return orig[1](x, w, *consts, stride=stride, lo=lo, hi=hi,
+                           c_true=c_true)
+
+        def pm(x, w, *consts, page, lo, hi):
+            current.append(("paged_qmatmul", tuple(x.shape), tuple(w.shape),
+                            lo, hi, page, None))
+            return orig[2](x, w, *consts, page=page, lo=lo, hi=hi)
+
+        def fm(x, w):
+            current.append(("fmatmul", tuple(x.shape), tuple(w.shape),
+                            str(x.dtype).removeprefix("torch."), None, None,
+                            None))
+            return orig[3](x, w)
+
+        mm_mod.qmatmul, dw_mod.qdwconv, pm_mod.paged_qmatmul = mm, dw, pm
+        mm_mod.fmatmul = fm
+        return current
+
+    def __exit__(self, *exc):
+        mm_mod, dw_mod, pm_mod = self.mods
+        (mm_mod.qmatmul, dw_mod.qdwconv, pm_mod.paged_qmatmul,
+         mm_mod.fmatmul) = self.orig
+        return False
 
 
 def work(sig) -> tuple:
@@ -212,7 +238,7 @@ def work(sig) -> tuple:
     kind, xs, ws, *_rest, stride = sig
     if kind in ("qmatmul", "paged_qmatmul"):
         m, k = xs
-        n = ws[1]
+        n = ws[0] if kind == "qmatmul" else ws[1]
         return m * k + k * n + 5 * 4 * n + m * n, 2 * m * k * n, INT8_OPS_PER_S
     if kind == "fmatmul":
         m, k = xs
@@ -252,7 +278,7 @@ def random_operands(sig, gen):
         return torch.randint(-128, 128, shape, generator=gen, device=dev,
                              dtype=torch.int16).to(torch.int8)
 
-    n = ws[-1]
+    n = ws[0] if kind == "qmatmul" else ws[-1]
     consts = (torch.randn(n, generator=gen, device=dev) * 5,
               torch.rand(n, generator=gen, device=dev) * 0.02 + 1e-4,
               torch.randint(-5000, 5000, (n,), generator=gen, device=dev,
@@ -264,32 +290,36 @@ def random_operands(sig, gen):
     return i8(xs), i8(ws), consts
 
 
-def library_qmatmul(x, w, consts, lo, hi, n_true):
-    """Yardstick only: cuBLAS int8 GEMM (torch._int_mm) + requant in torch."""
+def int_mm_takes(x, w_kn) -> bool:
+    """Whether cuBLAS' int8 GEMM (torch._int_mm) takes this product: its
+    shape rules (M > 16, K and N multiples of 8), then one trial call
+    (cuBLASLt refuses some layouts and shapes beyond those rules)."""
+    m, k = x.shape
+    if m <= 16 or k % 8 or w_kn.shape[1] % 8:
+        return False
+    try:
+        torch._int_mm(x, w_kn)
+        torch.cuda.synchronize()
+        return True
+    except RuntimeError:
+        return False
+
+
+def library_qmatmul(x, w_kn, consts, lo, hi, n_true=None, int_mm=False):
+    """Yardstick only: cuBLAS int8 GEMM (torch._int_mm) where it takes the
+    product (``int_mm``), else a float64 torch.matmul (exact here), each +
+    requant in torch. ``w_kn`` is (K, N). Returns (result, label)."""
     bias, resc, wsum, coff, zw = consts
-    acc = torch._int_mm(x, w)
+    if int_mm:
+        acc, label = torch._int_mm(x, w_kn), "int_mm"
+    else:
+        acc, label = (x.double() @ w_kn.double()).to(torch.int32), "matmul_f64"
     sx = x.sum(1, keepdim=True, dtype=torch.int32)
     y = torch.addcmul(bias, resc, (acc - zw * sx - wsum + coff).float())
     q = y.clamp(lo, hi).round().clamp(-128, 127).to(torch.int8)
     if n_true is not None:
         q[:, n_true:] = 0
-    return q
-
-
-def library_paged(x, w, consts, lo, hi):
-    """Yardstick only: torch._int_mm where its shape rules allow (M > 16, K
-    and N multiples of 8), else a float64 torch.matmul (exact here), each +
-    requant in torch. Returns (result, label)."""
-    bias, resc, wsum, coff, zw = consts
-    m, k = x.shape
-    n = w.shape[1]
-    if m > 16 and k % 8 == 0 and n % 8 == 0:
-        acc, label = torch._int_mm(x, w), "int_mm"
-    else:
-        acc, label = (x.double() @ w.double()).to(torch.int32), "matmul_f64"
-    sx = x.sum(1, keepdim=True, dtype=torch.int32)
-    y = torch.addcmul(bias, resc, (acc - zw * sx - wsum + coff).float())
-    return y.clamp(lo, hi).round().clamp(-128, 127).to(torch.int8), label
+    return q, label
 
 
 def library_qdwconv(x, w, consts, lo, hi, c_true, stride):
@@ -330,16 +360,23 @@ def phase_kernels(sigs):
             hi_t = torch.tensor(hi, dtype=torch.float32, device="cuda")
         lib_label = "torch"
         if kind == "qmatmul":
+            w_kn = w.t()  # (K, N), column-major: cuBLASLt's int8 layout
+            use_int_mm = int_mm_takes(x, w_kn)
+
             def kern():
                 return qmatmul(x, w, *consts, lo=lo, hi=hi, n_true=lanes)
 
             def plain():
-                return ref.qmatmul_ref(x, w, *consts, lo=lo, hi=hi,
+                return ref.qmatmul_ref(x, w_kn, *consts, lo=lo, hi=hi,
                                        n_true=lanes)
 
             def lib():
-                return library_qmatmul(x, w, consts, lo_t, hi_t, lanes)
+                return library_qmatmul(x, w_kn, consts, lo_t, hi_t, lanes,
+                                       use_int_mm)[0]
+            lib_label = "int_mm" if use_int_mm else "matmul_f64"
         elif kind == "paged_qmatmul":
+            use_int_mm = int_mm_takes(x, w)
+
             def kern():
                 return paged_qmatmul(x, w, *consts, page=lanes, lo=lo, hi=hi)
 
@@ -348,8 +385,9 @@ def phase_kernels(sigs):
                                              hi=hi)
 
             def lib():
-                return library_paged(x, w, consts, lo_t, hi_t)[0]
-            lib_label = library_paged(x, w, consts, lo_t, hi_t)[1]
+                return library_qmatmul(x, w, consts, lo_t, hi_t,
+                                       int_mm=use_int_mm)[0]
+            lib_label = "int_mm" if use_int_mm else "matmul_f64"
         elif kind == "fmatmul":
             def kern():
                 return fmatmul(x, w)
@@ -379,6 +417,8 @@ def phase_kernels(sigs):
             excess = float((diff - tol - tol * want.float().abs()).max())
             check(excess <= 0, f"fmatmul {lo} {xs}x{ws} differs from its "
                                f"plain version by up to {err} (tol {tol})")
+            check(torch.equal(kern(), got),
+                  f"fmatmul {lo} {xs}x{ws}: two calls differ")
             lib_equal = bool(torch.allclose(lib_out.float(), want.float(),
                                             rtol=tol, atol=tol))
         else:
@@ -408,10 +448,6 @@ def phase_kernels(sigs):
 
 def per_forward(calls, measured, bucket, kind, key):
     return sum(measured[s][key] for s in calls[bucket] if s[0] == kind)
-
-
-def round_up(d: int, m: int = 128) -> int:
-    return -(-d // m) * m
 
 
 def with_output(g, op_index):
@@ -468,6 +504,71 @@ def reset_counts() -> None:
     from repro_torch.kernels import qmatmul as mm_mod
     mm_mod.launches = dw_mod.launches = pm_mod.launches = 0
     mm_mod.fmatmul_launches = kops.probe_launches = 0
+
+
+def ptxas_report(log: str) -> dict:
+    """Entry function (mangled) -> registers, shared-memory, stack-frame
+    and spill bytes, from nvcc's ``-Xptxas=-v`` output."""
+    out, fn = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for)"
+                      r" '?([\w$]+)'?", line)
+        if m:
+            fn = m.group(1)
+            out.setdefault(fn, {})
+            continue
+        if fn is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            (out[fn]["stack_bytes"], out[fn]["spill_stores"],
+             out[fn]["spill_loads"]) = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[fn]["registers"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes smem", line)
+        if m:
+            out[fn]["smem_bytes"] = int(m.group(1))
+    return out
+
+
+def phase_explicit(explicit, measured, built):
+    """The three explicit cases with the ptxas report of the kernels each
+    launches; ptxas must report no spills in either redesigned kernel."""
+    from repro_torch.kernels import qmatmul as mm_mod
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    reports = {name: ptxas_report(built[name]["log"])
+               for name in ("qmatmul", "fmatmul")}
+    for name, rep in reports.items():
+        check(rep, f"{name}: no ptxas report in the build log")
+        spilled = {fn: r for fn, r in rep.items()
+                   if r.get("spill_stores", 0) or r.get("spill_loads", 0)}
+        check(not spilled, f"{name}: ptxas reports spills: {spilled}")
+    cases = []
+    for sig in explicit:
+        kind, (m, k), ws = sig[:3]
+        if kind == "qmatmul":
+            bm, bn, bk = mm_mod.block_tile(m, k, ws[0])
+            config = {"block_tile": [bm, bn, bk]}
+            tags = [f"qmatmul_kernelILi{bm}ELi{bn}ELi{bk}E"]
+        else:
+            splits, kslice = mm_mod.fmatmul_splits(m, k, ws[1], sms)
+            config = {"splits": splits, "kslice": kslice}
+            t = "f" if sig[3] == "float32" else "13__nv_bfloat16"
+            tags = [f"fmatmul_kernelI{t}E", f"fmatmul_reduceI{t}E"]
+        r = measured[sig]
+        cases.append({
+            "kind": kind, "dtype": sig[3] if kind == "fmatmul" else "int8",
+            "mkn": [m, k, ws[0] if kind == "qmatmul" else ws[1]], **config,
+            **{key: r[key] for key in ("ms", "plain_ms", "library",
+                                       "library_ms", "bound_ms", "bound_by",
+                                       "max_abs_err")},
+            "bound_share": r["bound_ms"] / r["ms"],
+            "ms_le_library": r["ms"] <= r["library_ms"],
+            "ptxas": {fn: rep for fn, rep in reports[kind].items()
+                      if any(tag in fn for tag in tags)}})
+    emit({"phase": "explicit", "cases": cases})
 
 
 # ---------------------------------------------------------------------------
@@ -736,6 +837,7 @@ def main() -> int:
     from repro_torch.core.engine import CompiledModel, bucket_for
     from repro_torch.core.quantize import quantize_graph
     from repro_torch.kernels import _build
+    from repro_torch.kernels import ops as kops
 
     t_start = time.perf_counter()
     kind = torch.cuda.get_device_name(0)
@@ -751,8 +853,7 @@ def main() -> int:
     built = _build.build()
     emit({"phase": "build", "wall_s": round(time.perf_counter() - t0, 3),
           "sources": {n: {"seconds": round(r["seconds"], 3),
-                          "ptxas": [ln.strip() for ln in r["log"].splitlines()
-                                    if "Used" in ln or "spill" in ln]}
+                          "ptxas": ptxas_report(r["log"])}
                       for n, r in built.items()}})
     probe = phase_probe()
 
@@ -803,18 +904,30 @@ def main() -> int:
             check(n == PAGED[name][2],
                   f"{name} bucket {b}: {n} paged_qmatmul calls per forward")
 
-    fm_sigs = []
-    for dtype in ("float32", "bfloat16"):
-        for m, k, n in FMATMUL_SHAPES:
-            fm_sigs.append(("fmatmul", (round_up(m), round_up(k)),
-                            (round_up(k), round_up(n)), dtype, None, None, None))
-        fm_sigs += [s[:3] + (dtype,) + s[4:] for s in float_calls[1]
-                    if s[0] == "fmatmul"]
+    # fmatmul as ops.fmatmul calls it (K and N padded to whole 16-byte rows):
+    # the float speech engine's calls (float32), the same products in
+    # bfloat16, and the reference's dtype-sweep shapes in both
+    engine_mkn = {(s[1][0], s[1][1], s[2][1]) for b in float_calls
+                  for s in float_calls[b] if s[0] == "fmatmul"}
+    with recording() as fm_sigs:
+        for dtype in (torch.float32, torch.bfloat16):
+            for m, k, n in sorted(engine_mkn) + list(FMATMUL_SHAPES):
+                kops.fmatmul(torch.zeros((m, k), dtype=dtype, device="cuda"),
+                             torch.zeros((k, n), dtype=dtype, device="cuda"))
+    conv0 = calls[max(BUCKETS)][0]  # conv0 at bucket 8: its bounds, n_true
+    check(conv0[0] == "qmatmul", f"first call of a forward: {conv0}")
+    qm_m, qm_k, qm_n = QMATMUL_EXPLICIT
+    fm_m, fm_k, fm_n = FMATMUL_EXPLICIT
+    explicit = [("qmatmul", (qm_m, qm_k), (qm_n, qm_k)) + conv0[3:]] + [
+        ("fmatmul", (fm_m, fm_k), (fm_k, fm_n), dtype, None, None, None)
+        for dtype in ("float32", "bfloat16")]
     sigs = ([s for b in calls for s in calls[b]]
             + [s for pc in paged_calls.values() for b in pc for s in pc[b]
                if s[0] == "paged_qmatmul"]
-            + [s for s in fc_calls if s[0] == "paged_qmatmul"] + fm_sigs)
+            + [s for s in fc_calls if s[0] == "paged_qmatmul"] + fm_sigs
+            + explicit)
     measured = phase_kernels(sigs)
+    phase_explicit(explicit, measured, built)
     phase_layers(cm, qg, xq[0])
 
     # -- the first main path, counted ----------------------------------------

@@ -61,6 +61,7 @@ class ExecutionPlan:
         """Fold, plan and move every constant to ``device``. On a CUDA
         device the kernel route first probes the card
         (``kernels.ops.can_launch_kernels``) and raises with its reason."""
+        from repro_torch.kernels.qmatmul import QUANTUM
         g.validate()
         dev = resolve_device(device)
         if use_kernels and dev.type == "cuda":
@@ -71,7 +72,9 @@ class ExecutionPlan:
                                    f"{reason}")
         folded = preprocess_graph(g)  # compile-time parser phase, on the host
         paged = dict(paged or {})
-        layout = (plan_layout(g, folded, paged=paged).to(dev)
+        # the kernel route's layout, at the qmatmul kernel's lane quantum (on
+        # every device, so the CPU walks the layout the card does)
+        layout = (plan_layout(g, folded, quantum=QUANTUM, paged=paged).to(dev)
                   if (use_kernels and layout_plan) else None)
         consts = {tid: torch.as_tensor(t.data, device=dev)
                   for tid, t in enumerate(g.tensors) if t.is_const}

@@ -89,12 +89,14 @@ def _grow_const(v, n: int, n_pad: int, dtype) -> np.ndarray:
 class OpLayout:
     """Compile-time physical layout of one kernel-routed op.
 
-    ``w_phys``/``consts`` are the kernel-ready, lane-padded weights and
-    folded constants (numpy from :func:`plan_layout`, device tensors after
-    :meth:`to`). ``in_lanes``/``out_shape`` describe the padded activation
-    layout the op consumes/produces; ``n_true`` is the logical output channel
-    count (the kernels zero every lane beyond it, which is what makes chained
-    padded layers exact).
+    ``w_phys``/``consts`` are the lane-padded weights and folded constants
+    (numpy from :func:`plan_layout`, device tensors after :meth:`to`);
+    ``w_nk`` is ``w_phys`` transposed for the qmatmul kernel (fc and conv;
+    None for dwconv, whose kernel takes ``w_phys``).
+    ``in_lanes``/``out_shape`` describe the padded activation layout the op
+    consumes/produces; ``n_true`` is the logical output channel count (the
+    kernels zero every lane beyond it, which is what makes chained padded
+    layers exact).
     """
 
     kind: str            # "fc" | "conv" | "dwconv"
@@ -107,10 +109,13 @@ class OpLayout:
     out_shape: tuple     # physical (padded) output shape
     c_true: int          # logical input channels (border-fill mask for conv)
     z_x: int             # input zero point (SAME border fill)
+    w_nk: object = None  # fc/conv: w_phys.T (N', K'), K contiguous
 
     def to(self, device) -> "OpLayout":
         return dataclasses.replace(
             self, w_phys=torch.as_tensor(self.w_phys, device=device),
+            w_nk=(None if self.w_nk is None
+                  else torch.as_tensor(self.w_nk, device=device)),
             consts=tuple(torch.as_tensor(c, device=device)
                          for c in self.consts))
 
@@ -138,11 +143,12 @@ def plan_layout(g: G.Graph, folded: dict, quantum: int = MXU_LANES,
     An op is planned iff it takes the kernel route in the compiled engine
     (quantized + folded + a registered ``lower_kernel`` + not in ``paged``:
     paging wins, as in ``registry.run_compiled``, and a paged op's planned
-    producer hands it a logical view). ``quantum`` is the
-    lane multiple that channels, FC columns and FC rows are padded to; the
-    kernels take multiples of 64. Exactness rests on two invariants: planned
-    kernels zero their padding lanes, and SAME borders carry z_X only on
-    real lanes.
+    producer hands it a logical view). ``quantum`` is the lane multiple
+    that channels, FC columns and FC rows are padded to: 128, the TPU's, by
+    default (the reference plan); the engine plans at the qmatmul kernel's
+    ``QUANTUM`` (32). Exactness rests on two invariants: planned kernels
+    zero their padding lanes, and SAME borders carry z_X only on real
+    lanes.
     """
     paged = paged or {}
     layouts, phys = {}, {}
@@ -167,7 +173,8 @@ def plan_layout(g: G.Graph, folded: dict, quantum: int = MXU_LANES,
             w_phys = np.zeros((kp, np_), np.int8)
             w_phys[:k, :n] = w
             lay = OpLayout("fc", w_phys, _planned_consts(fc, n, np_),
-                           lo, hi, n, kp, (mp, np_), k, z_x)
+                           lo, hi, n, kp, (mp, np_), k, z_x,
+                           np.ascontiguousarray(w_phys.T))
         elif op.op == G.CONV_2D:
             kh, kw, cin, cout = w.shape
             cin_p = round_up(cin, quantum)
@@ -178,7 +185,7 @@ def plan_layout(g: G.Graph, folded: dict, quantum: int = MXU_LANES,
             w_phys[:, :cout] = f.reshape(kh * kw * cin_p, cout)
             lay = OpLayout("conv", w_phys, _planned_consts(fc, cout, np_),
                            lo, hi, cout, cin_p, y_t.shape[:3] + (np_,),
-                           cin, z_x)
+                           cin, z_x, np.ascontiguousarray(w_phys.T))
         else:  # DEPTHWISE_CONV_2D
             if w.shape[3] != 1:
                 raise ValueError("depth multiplier 1 only (the kernel contract)")

@@ -45,15 +45,18 @@ def _target(name: str) -> Path:
 def build(names=SOURCES) -> dict:
     """Compile every named source that has no up-to-date library, with one
     nvcc process per source running in parallel. Returns name ->
-    ``{"path", "seconds", "log"}`` (``log`` holds ptxas' register and shared
-    memory report; ``seconds`` is 0.0 for a library that was reused).
-    Raises ``RuntimeError`` with the compiler's output when a build fails."""
+    ``{"path", "seconds", "log"}`` (``log`` holds ptxas' register, shared
+    memory and spill report, kept beside the library; ``seconds`` is 0.0
+    for a library that was reused). Raises ``RuntimeError`` with the
+    compiler's output when a build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     result, running = {}, {}
     for name in names:
         target = _target(name)
         if target.exists():
-            result[name] = {"path": target, "seconds": 0.0, "log": ""}
+            log = target.with_suffix(".log")
+            result[name] = {"path": target, "seconds": 0.0,
+                            "log": log.read_text() if log.exists() else ""}
             continue
         tmp = target.with_suffix(f".{os.getpid()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
@@ -66,6 +69,7 @@ def build(names=SOURCES) -> dict:
         if proc.returncode != 0:
             failures.append(f"nvcc failed for {name}.cu:\n{log}")
             continue
+        target.with_suffix(".log").write_text(log)
         os.replace(tmp, target)  # atomic: a reader never sees half a library
         result[name] = {"path": target, "seconds": time.perf_counter() - t0,
                         "log": log}

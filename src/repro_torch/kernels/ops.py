@@ -4,7 +4,8 @@
 Two families of entry points, with the JAX package's shapes:
 
 * ``*_folded`` — the per-call route: logical-shape int8 in/out. Each call
-  pads its operands to the kernel's tile and slices the result back;
+  pads K and N to the kernel's quantum and slices the result back (the
+  kernel masks ragged rows, so M is not padded);
   ``qmatmul_folded(paged=True)`` runs the paged kernel (Sec. 4.3) instead.
 * ``*_planned`` — the graph-planned route (``preprocess.plan_layout``):
   weights and folded constants arrive pre-padded (and, inside an engine,
@@ -35,7 +36,7 @@ from . import qconv as _qc
 from . import qdwconv as _dw
 from . import qmatmul as _qm
 
-TILE = _qm.TILE
+QUANTUM = _qm.QUANTUM
 LANE = MXU_LANES
 
 #: Launches of the probe kernel so far in this process (at most one per
@@ -73,6 +74,7 @@ def can_launch_kernels():
 
 
 def _pad2(a, m0: int, m1: int):
+    """Zero-pad a 2-D tensor's dimensions up to multiples of m0 and m1."""
     p0 = round_up(a.shape[0], m0) - a.shape[0]
     p1 = round_up(a.shape[1], m1) - a.shape[1]
     return F.pad(a, (0, p1, 0, p0)) if (p0 or p1) else a
@@ -120,14 +122,16 @@ def qmatmul_folded(x_q, w_q, fc: FoldedConsts, fused: str = "NONE", *,
     m = x_q.shape[0]
     n = w_q.shape[1]
     lo, hi = clamp_bounds(fc, fused)
-    quantum = LANE if paged else TILE
-    xp = _pad2(x_q, quantum, quantum).contiguous()
-    wp = _pad2(w_q, quantum, quantum).contiguous()
-    consts = _pad_channel_consts(fc, n, wp.shape[1], x_q.device)
     if paged:
+        xp = _pad2(x_q, LANE, LANE).contiguous()
+        wp = _pad2(w_q, LANE, LANE).contiguous()
+        consts = _pad_channel_consts(fc, n, wp.shape[1], x_q.device)
         out = _pm.paged_qmatmul(xp, wp, *consts, page=page, lo=lo, hi=hi)
     else:
-        out = _qm.qmatmul(xp, wp, *consts, lo=lo, hi=hi)
+        xp = _pad2(x_q, 1, QUANTUM).contiguous()
+        w_nk = _pad2(w_q.t(), QUANTUM, QUANTUM).contiguous()
+        consts = _pad_channel_consts(fc, n, w_nk.shape[0], x_q.device)
+        out = _qm.qmatmul(xp, w_nk, *consts, lo=lo, hi=hi)
     return out[:m, :n].reshape(lead + (n,))
 
 
@@ -157,16 +161,18 @@ def paged_fc(x_q, w_q, fc: FoldedConsts, n_pages: int, lo: float, hi: float):
 
 
 def fmatmul(x, w):
-    """Float matmul on the fmatmul kernel (the float FullyConnected path):
-    operands padded to 128 as the reference pads them, the result sliced
-    back. Any leading x rank: (..., K) @ (K, N) runs as one 2-D product."""
+    """Float matmul on the fmatmul kernel (the float FullyConnected path).
+    The kernel masks ragged edges, so only K and N are zero-padded, to
+    whole 16-byte rows (nothing for the speech model's 4000 x 4 FC), and the
+    result is sliced back. Any leading x rank: (..., K) @ (K, N) runs as one
+    2-D product."""
     lead = tuple(x.shape[:-1])
     x = x.reshape(-1, x.shape[-1])
-    m = x.shape[0]
     n = w.shape[1]
-    out = _qm.fmatmul(_pad2(x, LANE, LANE).contiguous(),
-                      _pad2(w, LANE, LANE).contiguous())
-    return out[:m, :n].reshape(lead + (n,))
+    per_chunk = 16 // x.element_size()
+    out = _qm.fmatmul(_pad2(x, 1, per_chunk).contiguous(),
+                      _pad2(w, per_chunk, per_chunk).contiguous())
+    return out[:, :n].reshape(lead + (n,))
 
 
 def qmatmul_planned(x_q, lay):
@@ -177,7 +183,7 @@ def qmatmul_planned(x_q, lay):
     if tuple(x_q.shape) != (mp, lay.in_lanes):
         x_q = F.pad(x_q, (0, lay.in_lanes - x_q.shape[1], 0, mp - x_q.shape[0]))
     return _qm.qmatmul(x_q.contiguous(),
-                       torch.as_tensor(lay.w_phys, device=x_q.device),
+                       torch.as_tensor(lay.w_nk, device=x_q.device),
                        *_planned_consts(lay, x_q.device), lo=lay.lo,
                        hi=lay.hi, n_true=_n_true(lay))
 
@@ -185,21 +191,14 @@ def qmatmul_planned(x_q, lay):
 def qmatmul_planned_batched(x_q, lay):
     """Planned-layout FC with one leading batch dimension: ``x_q`` is
     (B, m, K) logical or (B, m, K') lane-padded; the batch merges into the
-    kernel's rows (aligned here, sliced after). Output (B, m, N') with
-    padding lanes zeroed."""
+    kernel's rows (any count: the kernel masks the last row tile). Output
+    (B, m, N') with padding lanes zeroed."""
     b, m = x_q.shape[0], x_q.shape[1]
-    rows = b * m
-    x2 = x_q.reshape(rows, x_q.shape[-1])
-    mp = round_up(rows, TILE)
-    lane_pad = lay.in_lanes - x2.shape[-1]
-    if mp != rows or lane_pad:
-        x2 = F.pad(x2, (0, lane_pad, 0, mp - rows))
+    x2 = _lane_pad(x_q.reshape(b * m, x_q.shape[-1]), lay.in_lanes)
     out = _qm.qmatmul(x2.contiguous(),
-                      torch.as_tensor(lay.w_phys, device=x_q.device),
+                      torch.as_tensor(lay.w_nk, device=x_q.device),
                       *_planned_consts(lay, x_q.device), lo=lay.lo, hi=lay.hi,
                       n_true=_n_true(lay))
-    if mp != rows:
-        out = out[:rows]
     return out.reshape(b, m, lay.out_shape[-1])
 
 
@@ -215,9 +214,10 @@ def qconv_folded(x_q, f_q, fc: FoldedConsts, *, stride, padding,
     kh, kw, cin, cout = f_q.shape
     lo, hi = clamp_bounds(fc, fused)
     x_q = pad_input_q(x_q, kh, kw, stride, padding, fc.z_x)
-    w_mat = _pad2(f_q.reshape(kh * kw * cin, cout), TILE, TILE).contiguous()
-    consts = _pad_channel_consts(fc, cout, w_mat.shape[1], x_q.device)
-    out = _qc.qconv2d(x_q, w_mat, *consts, kh=kh, kw=kw, stride=stride,
+    w_nk = _pad2(f_q.reshape(kh * kw * cin, cout).t(), QUANTUM,
+                 QUANTUM).contiguous()
+    consts = _pad_channel_consts(fc, cout, w_nk.shape[0], x_q.device)
+    out = _qc.qconv2d(x_q, w_nk, *consts, kh=kh, kw=kw, stride=stride,
                       lo=lo, hi=hi)
     return out[..., :cout]
 
@@ -251,7 +251,7 @@ def qconv_planned(x_q, lay, *, kh, kw, stride, padding):
     x_q = _lane_pad(x_q, lay.in_lanes)
     x_q = _pad_border_planned(x_q, kh, kw, stride, padding, lay.z_x,
                               lay.c_true)
-    return _qc.qconv2d(x_q, torch.as_tensor(lay.w_phys, device=x_q.device),
+    return _qc.qconv2d(x_q, torch.as_tensor(lay.w_nk, device=x_q.device),
                        *_planned_consts(lay, x_q.device), kh=kh, kw=kw,
                        stride=stride, lo=lay.lo, hi=lay.hi,
                        n_true=_n_true(lay))

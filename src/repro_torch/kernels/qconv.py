@@ -5,15 +5,16 @@ tensor code (torch here, XLA there) and the contraction with the folded
 epilogue is the hand-written ``qmatmul`` kernel. Each output position's
 receptive field becomes one row of an (M, K) = (B·OH·OW, kh·kw·C) int8
 matrix (tap-major / channel-minor, matching ``filter.reshape(kh*kw*C,
-Cout)`` for HWIO filters). Zero K/M padding adds nothing to ΣXW or ΣX, so
-the result is exact after slicing. The 1×1/stride-1 case (the 13 pointwise
-convs of MobileNetV1) is a pure reshape.
+Cout)`` for HWIO filters). Zero K padding adds nothing to ΣXW or ΣX, so
+the result is exact after slicing; the kernel masks ragged rows, so M is
+not padded. The 1×1/stride-1 case (the 13 pointwise convs of MobileNetV1)
+is a pure reshape.
 """
 from __future__ import annotations
 
 import torch.nn.functional as F
 
-from repro_torch.core.ops_ref import patches, round_up
+from repro_torch.core.ops_ref import patches
 from . import qmatmul as _qm
 
 
@@ -29,29 +30,27 @@ def im2col_q(x_q, kh: int, kw: int, stride):
             (b, oh, ow))
 
 
-def qconv2d(x_q, w_mat, bias_term, rescale, w_sum_zx, const_off, z_w, *,
+def qconv2d(x_q, w_nk, bias_term, rescale, w_sum_zx, const_off, z_w, *,
             kh, kw, stride, lo=float("-inf"), hi=float("inf"), n_true=None):
     """Quantized VALID conv on the qmatmul kernel.
 
     x_q    (B, H, W, Cl) int8, already spatially pre-padded (SAME handled by
            the caller with the input zero point).
-    w_mat  (K', N') int8: the flattened HWIO filter, zero-padded, with K' a
-           multiple of the kernel tile and >= kh*kw*Cl.
+    w_nk   (N', K') int8: the flattened HWIO filter, transposed (K
+           contiguous, as the qmatmul kernel takes it) and zero-padded, with
+           K' a multiple of ``qmatmul.QUANTUM`` and >= kh*kw*Cl.
     consts (N',) per-output-channel folded Eq. (7) terms.
 
     Returns (B, OH, OW, N') int8; lanes >= ``n_true`` are zero when set.
     """
     stride = tuple(stride)
     mat, (b, oh, ow) = im2col_q(x_q, kh, kw, stride)
-    m, k = mat.shape
-    kp = w_mat.shape[0]
+    k = mat.shape[1]
+    kp = w_nk.shape[1]
     if kp < k:
-        raise ValueError(f"qconv2d: filter rows {kp} < patch width {k}")
-    mp = round_up(m, _qm.TILE)
-    if (mp, kp) != (m, k):
-        mat = F.pad(mat, (0, kp - k, 0, mp - m))
-    out = _qm.qmatmul(mat.contiguous(), w_mat, bias_term, rescale, w_sum_zx,
+        raise ValueError(f"qconv2d: filter width {kp} < patch width {k}")
+    if kp != k:
+        mat = F.pad(mat, (0, kp - k))
+    out = _qm.qmatmul(mat.contiguous(), w_nk, bias_term, rescale, w_sum_zx,
                       const_off, z_w, lo=lo, hi=hi, n_true=n_true)
-    if mp != m:
-        out = out[:m]
     return out.reshape(b, oh, ow, out.shape[-1])

@@ -31,17 +31,23 @@ def _operands(gen, xshape, wshape, n):
     return i8(xshape), i8(wshape), consts
 
 
-@pytest.mark.parametrize("m,k,n,n_true", [(64, 64, 64, None), (2304, 1152, 128, 8),
-                                          (640, 256, 256, 200)])
+@pytest.mark.parametrize("m,k,n,n_true", [
+    (64, 64, 64, None), (2304, 1152, 128, 8), (640, 256, 256, 200),
+    (100, 288, 32, 8), (2305, 288, 32, None), (9, 256, 256, 256),
+    (18432, 288, 32, 8), (4608, 64, 64, None), (4608, 32, 64, 50),
+    (4096, 128, 128, 100)])
 @pytest.mark.parametrize("lo,hi", [(float("-inf"), float("inf")), (-3.0, 57.7)])
 def test_qmatmul_kernel_equals_plain(gen, m, k, n, n_true, lo, hi):
+    """Ragged M (100, 2305, 9), person's conv0 at quantum 32 (K 288, N 32)
+    at buckets 1 and 8, and the quantum-128 conv0 shape (2304 x 1152 x
+    128): every block tile and K stage the wrapper picks."""
     from repro_torch.kernels import qmatmul as mm, ref
-    x, w, c = _operands(gen, (m, k), (k, n), n)
+    x, w_nk, c = _operands(gen, (m, k), (n, k), n)
     before = mm.launches
-    got = mm.qmatmul(x, w, *c, lo=lo, hi=hi, n_true=n_true)
+    got = mm.qmatmul(x, w_nk, *c, lo=lo, hi=hi, n_true=n_true)
     assert mm.launches == before + 1
-    torch.testing.assert_close(got, ref.qmatmul_ref(x, w, *c, lo=lo, hi=hi,
-                                                    n_true=n_true),
+    torch.testing.assert_close(got, ref.qmatmul_ref(x, w_nk.t(), *c, lo=lo,
+                                                    hi=hi, n_true=n_true),
                                rtol=0, atol=0)
 
 
@@ -61,10 +67,14 @@ def test_qdwconv_kernel_equals_plain(gen, shape, stride, c_true):
 
 
 def test_wrapper_rejects_misaligned_rows(gen):
+    """Rows of K = 48 bytes are not whole mma depths (32): refused before
+    any launch."""
     from repro_torch.kernels import qmatmul as mm
-    x, w, c = _operands(gen, (100, 64), (64, 64), 64)
+    x, w_nk, c = _operands(gen, (100, 48), (64, 48), 64)
+    before = mm.launches
     with pytest.raises(ValueError):
-        mm.qmatmul(x, w, *c)
+        mm.qmatmul(x, w_nk, *c)
+    assert mm.launches == before
 
 
 def test_person_engine_on_card_equals_cpu_plain_route(gen):
@@ -102,18 +112,25 @@ def test_paged_qmatmul_kernel_equals_plain(gen, m, k, n, page, lo, hi):
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
                                        (torch.bfloat16, 5e-2)])
-@pytest.mark.parametrize("m,k,n", [(8, 16, 8), (130, 70, 33)])
+@pytest.mark.parametrize("m,k,n", [(8, 16, 8), (130, 70, 33), (8, 4000, 4),
+                                   (128, 4096, 128)])
 def test_fmatmul_kernel_within_tolerance(gen, dtype, tol, m, k, n):
+    """Unsplit and split K (the speech FC, 8 x 4000 x 4, and 128 x 4096 x
+    128, with the speech FC's weight scale, sigma 0.05): within the
+    reference's tolerance, and two calls give the same bits (the split-K
+    reduction runs in a fixed order)."""
     from repro_torch.kernels import ops, qmatmul as mm, ref
     assert not torch.backends.cuda.matmul.allow_tf32
+    w_scale = 0.05 if k > 1024 else 1.0
     x = torch.randn(m, k, generator=gen, device="cuda").to(dtype)
-    w = torch.randn(k, n, generator=gen, device="cuda").to(dtype)
+    w = (torch.randn(k, n, generator=gen, device="cuda") * w_scale).to(dtype)
     before = mm.fmatmul_launches
     got = ops.fmatmul(x, w)
     assert mm.fmatmul_launches == before + 1
-    assert got.dtype == dtype
+    assert got.dtype == dtype and tuple(got.shape) == (m, n)
     torch.testing.assert_close(got.float(), ref.fmatmul_ref(x, w).float(),
                                rtol=tol, atol=tol)
+    assert torch.equal(ops.fmatmul(x, w), got)
 
 
 def test_probe_launches_on_the_card(gen):

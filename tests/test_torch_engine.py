@@ -103,6 +103,47 @@ def test_full_width_person_matches_reference(tmp_path):
         assert_i8_equal(got[1], logits)
 
 
+PAPER_SHAPES = {"sine": (1, 1), "speech": (1, 49, 40, 1),
+                "person": (1, 96, 96, 1)}
+
+
+@pytest.mark.parametrize("name", sorted(PAPER_SHAPES))
+def test_paper_model_kernel_route_matches_reference(tmp_path, name):
+    """The kernel route on the CPU (the kernels' plain versions) walks the
+    engine's layout, planned at the qmatmul kernel's 32-lane quantum, and
+    equals the JAX package's plain compiled route on the paper's three
+    models: ``predict_q`` and every batch 1..8 through buckets 1, 2, 4, 8.
+    The last FC's output is made a graph output in both packages, so the
+    weighted path is compared exactly (softmax within one LSB)."""
+    from repro.configs.paper_models import PAPER_MODELS as J_MODELS
+    from repro_torch.kernels.qmatmul import QUANTUM
+    shape = PAPER_SHAPES[name]
+    rng = np.random.default_rng(31)
+    jq = j_quantize(J_MODELS[name](), [rng.normal(0, 1, shape).astype("f")
+                                       for _ in range(2)])
+    fc_out = [op for op in jq.ops if op.op == "FULLY_CONNECTED"][-1].outputs[0]
+    if fc_out not in jq.outputs:
+        jq.outputs.append(fc_out)
+    soft = [any(op.op == "SOFTMAX" and op.outputs[0] == t for op in jq.ops)
+            for t in jq.outputs]
+    tq = carry(jq, tmp_path)
+    xs = np.stack([jq.tensor(jq.inputs[0]).qparams.quantize(
+        rng.normal(0, 1, shape).astype("f")) for _ in range(8)])
+    jm = JCompiled(jq, use_pallas=False)
+    cm = CompiledModel(tq, device="cpu")
+    lanes = [lay.out_shape[-1] for lay in cm.plan.layouts.values()]
+    assert lanes and all(n % QUANTUM == 0 for n in lanes) and min(lanes) < 128
+
+    def compare(got, want):
+        for g, w, is_soft in zip(got, want, soft):
+            (assert_softmax_close if is_soft else assert_i8_equal)(g, w)
+
+    compare(cm.predict_q(xs[0]), jm.predict_q(xs[0]))
+    for batch in range(1, 9):
+        compare(cm.predict_q_many(xs[:batch], max_batch=8),
+                jm.predict_q_many(xs[:batch], max_batch=8))
+
+
 def test_bucket_helpers_match_reference():
     for b in range(0, 40):
         assert TE.bucket_for(b) == JE.bucket_for(b)

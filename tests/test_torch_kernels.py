@@ -78,7 +78,9 @@ def test_qmatmul_ref_matches_pallas(m, k, n, n_true, fused):
                           n_true=n_true)
     assert_i8_equal(got, want)
     before = mm_mod.launches
-    assert_i8_equal(t_qmatmul(t(x), t(w), *(t(v) for v in c), lo=lo, hi=hi,
+    # the wrapper takes the weight transposed, (N, K)
+    w_nk = t(np.ascontiguousarray(w.T))
+    assert_i8_equal(t_qmatmul(t(x), w_nk, *(t(v) for v in c), lo=lo, hi=hi,
                               n_true=n_true), want)
     assert mm_mod.launches == before  # CPU tensors: the plain version
 
@@ -178,21 +180,27 @@ def test_qconv_folded_matches_reference(shape, f, stride, padding, fused):
 # ---------------------------------------------------------------------------
 
 def _mm_args(m=64, k=64, n=64):
+    """qmatmul's operands: x (M, K), the weight transposed (N, K), consts."""
     rng = np.random.default_rng(0)
-    return [t(_i8(rng, (m, k))), t(_i8(rng, (k, n)))] + \
+    return [t(_i8(rng, (m, k))), t(_i8(rng, (n, k)))] + \
         [t(v) for v in _consts(rng, n, 0)]
 
 
-@pytest.mark.parametrize("bad", ["x_dtype", "m_tile", "k_mismatch",
-                                 "const_shape", "const_dtype", "noncontig"])
+@pytest.mark.parametrize("bad", ["x_dtype", "k_quantum", "n_quantum",
+                                 "m_zero", "k_mismatch", "const_shape",
+                                 "const_dtype", "noncontig"])
 def test_qmatmul_wrapper_rejects(bad):
     args = _mm_args()
     if bad == "x_dtype":
         args[0] = args[0].to(torch.int32)
-    elif bad == "m_tile":
-        args = _mm_args(m=65)
+    elif bad == "k_quantum":
+        args = _mm_args(k=48)
+    elif bad == "n_quantum":
+        args = _mm_args(n=48)
+    elif bad == "m_zero":
+        args = _mm_args(m=0)
     elif bad == "k_mismatch":
-        args[1] = args[1][:32]
+        args[1] = args[1][:, :32].contiguous()
     elif bad == "const_shape":
         args[2] = args[2][:10]
     elif bad == "const_dtype":
@@ -232,11 +240,13 @@ def _float_operands(dtype, m, k, n, w_scale=1.0):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("m,k,n", [(8, 16, 8), (130, 70, 33)])
-def test_fmatmul_matches_reference(dtype, m, k, n):
-    """The reference's ``test_fmatmul_dtypes`` shapes, through both packages'
-    ``ops.fmatmul`` (JAX: the Pallas kernel in interpret mode)."""
-    jx, jw, tx, tw = _float_operands(dtype, m, k, n)
+@pytest.mark.parametrize("m,k,n,w_scale", [(8, 16, 8, 1.0), (130, 70, 33, 1.0),
+                                           (8, 4000, 4, 0.05)])
+def test_fmatmul_matches_reference(dtype, m, k, n, w_scale):
+    """The reference's ``test_fmatmul_dtypes`` shapes and the speech model's
+    float FC (8 x 4000 x 4, weights of its scale), unpadded, through both
+    packages' ``ops.fmatmul`` (JAX: the Pallas kernel in interpret mode)."""
+    jx, jw, tx, tw = _float_operands(dtype, m, k, n, w_scale)
     want = np.asarray(jops.fmatmul(jx, jw), np.float32)
     before = mm_mod.fmatmul_launches
     got = tops.fmatmul(tx, tw)
@@ -261,22 +271,57 @@ def test_fmatmul_ref_matches_pallas(dtype, m, k, n, w_scale):
     np.testing.assert_allclose(got.float().numpy(), want, rtol=tol, atol=tol)
 
 
-@pytest.mark.parametrize("bad", ["int_dtype", "mixed_dtype", "m_tile",
-                                 "k_tile", "noncontig"])
+@pytest.mark.parametrize("bad", ["int_dtype", "mixed_dtype", "k_chunk",
+                                 "n_chunk", "bf16_k_chunk", "noncontig"])
 def test_fmatmul_wrapper_rejects(bad):
-    x, w = torch.zeros(64, 64), torch.zeros(64, 64)
+    """K and N must fill whole 16-byte rows: multiples of 4 in float32 and
+    of 8 in bfloat16 (M is any size: the kernel masks it)."""
+    x, w = torch.zeros(65, 64), torch.zeros(64, 64)
     if bad == "int_dtype":
         x, w = x.to(torch.int8), w.to(torch.int8)
     elif bad == "mixed_dtype":
         w = w.to(torch.bfloat16)
-    elif bad == "m_tile":
-        x = torch.zeros(65, 64)
-    elif bad == "k_tile":
-        x, w = torch.zeros(64, 48), torch.zeros(48, 64)
+    elif bad == "k_chunk":
+        x, w = torch.zeros(64, 70), torch.zeros(70, 64)
+    elif bad == "n_chunk":
+        w = torch.zeros(64, 33)
+    elif bad == "bf16_k_chunk":
+        x = torch.zeros(64, 12, dtype=torch.bfloat16)
+        w = torch.zeros(12, 64, dtype=torch.bfloat16)
     elif bad == "noncontig":
         x = torch.zeros(64, 128)[:, ::2]
     with pytest.raises((ValueError, TypeError)):
         mm_mod.fmatmul(x, w)
+
+
+@pytest.mark.parametrize("m,k,n,want", [
+    (128, 4096, 128, (32, 128)),   # 4 tiles x 32 slices of 4 steps
+    (8, 4000, 4, (63, 64)),        # the speech FC: 1 tile, 63 slices
+    (128, 128, 128, (1, 128)),     # 4 steps: the ring holds them all
+    (130, 72, 36, (1, 96)),
+    (1, 33 * 32, 4, (17, 64)),     # the last slice is short
+    (64, 160, 64, (3, 64)),        # 5 steps, 1 tile: 3 slices of 2
+])
+def test_fmatmul_splits(m, k, n, want):
+    """fmatmul's K split on a 132-SM card: about one wave of blocks, at
+    least 2 K steps a slice, every k in exactly one slice."""
+    splits, kslice = mm_mod.fmatmul_splits(m, k, n, 132)
+    assert (splits, kslice) == want
+    assert kslice % mm_mod.F_STEP == 0
+    assert (splits - 1) * kslice < k <= splits * kslice
+
+
+@pytest.mark.parametrize("m,k,n,want", [
+    (18432, 288, 32, (128, 32, 128)), (18432, 1152, 128, (128, 64, 128)),
+    (4608, 32, 64, (128, 64, 32)), (9, 256, 256, (64, 64, 128)),
+    (1, 256, 32, (128, 32, 128)), (2304, 32, 32, (128, 32, 32)),
+    (144, 64, 64, (64, 64, 64))])
+def test_qmatmul_block_tile(m, k, n, want):
+    """qmatmul's tile: warps of 32 x 32, BN divides N, a K stage of up to
+    128 bytes."""
+    bm, bn, bk = mm_mod.block_tile(m, k, n)
+    assert (bm, bn, bk) == want
+    assert n % bn == 0 and bm * bn in (4096, 8192) and bk in (32, 64, 128)
 
 
 def test_float_fc_kernel_route_matches_reference(tmp_path):

@@ -128,3 +128,46 @@ def test_pad_border_planned_matches_reference():
         got = tops._pad_border_planned(t(x), 3, 3, stride, "SAME", z_x, 3)
         assert_i8_equal(got, want)
         assert not got[..., 3:].any()
+
+
+@pytest.mark.parametrize("name", sorted(SHAPES) + ["person_like"])
+def test_plan_layout_quantum32_keeps_logical_slices(graphs, name):
+    """The engine's plan, at the qmatmul kernel's quantum of 32 lanes: the
+    same ops planned with the same bounds and logical widths as the
+    quantum-128 plan (itself the reference's), every logical slice of the
+    weights and constants equal to that plan's, every padding lane zero,
+    and the kernel's transposed weight equal to ``w_phys.T``."""
+    from repro_torch.kernels.qmatmul import QUANTUM
+    _, tq = graphs[name]
+    folded = TP.preprocess_graph(tq)
+    p128 = TP.plan_layout(tq, folded, quantum=128)
+    p32 = TP.plan_layout(tq, folded, quantum=QUANTUM)
+    assert QUANTUM == 32 and sorted(p32.layouts) == sorted(p128.layouts)
+    for i, a in p32.layouts.items():
+        b = p128.layouts[i]
+        for field in ("kind", "lo", "hi", "n_true", "c_true", "z_x"):
+            assert getattr(a, field) == getattr(b, field), (i, field)
+        n, c = a.n_true, a.c_true
+        assert a.in_lanes % QUANTUM == 0 and a.out_shape[-1] % QUANTUM == 0
+        assert c <= a.in_lanes <= b.in_lanes and a.out_shape[-1] >= n
+        assert a.out_shape[:-1] == b.out_shape[:-1] or a.kind == "fc"
+        for ca, cb in zip(a.consts, b.consts):
+            np.testing.assert_array_equal(ca[:n], cb[:n])
+            assert not ca[n:].any(), f"op {i}: constant padding not zero"
+        if a.kind == "dwconv":
+            assert a.w_nk is None
+            np.testing.assert_array_equal(a.w_phys[..., :n], b.w_phys[..., :n])
+            assert not a.w_phys[..., n:].any()
+            continue
+        if a.kind == "fc":
+            assert a.out_shape[0] == \
+                -(-tq.tensor(tq.ops[i].inputs[0]).shape[0] // QUANTUM) * QUANTUM
+            wa, wb = a.w_phys, b.w_phys
+        else:  # conv: (kh*kw*Cin', N') -> (kh, kw, Cin', N')
+            kh, kw = tq.tensor(tq.ops[i].inputs[1]).shape[:2]
+            wa = a.w_phys.reshape(kh, kw, a.in_lanes, -1)
+            wb = b.w_phys.reshape(kh, kw, b.in_lanes, -1)
+        np.testing.assert_array_equal(wa[..., :c, :n], wb[..., :c, :n])
+        assert not wa[..., c:, :].any() and not wa[..., n:].any()
+        assert a.w_nk.flags.c_contiguous
+        np.testing.assert_array_equal(a.w_nk, a.w_phys.T)
