@@ -13,23 +13,30 @@ full width, with random weights from a seed:
 4. kernels  — each kernel at every distinct call the two paths launch, on
               seeded random inputs (int8 with nonzero z_w; float), held
               against its plain PyTorch version: ``qmatmul`` / ``qdwconv``
-              at every (shape, clamp bound, n_true) of the person plan at
-              buckets 1 and 8; ``paged_qmatmul`` at every shape the paged
-              engines launch plus the 256×256 FC at pages 2/8/32 (int8
-              exact); ``fmatmul`` at (8,16,8), (130,70,33) and the speech
-              model's float FC as ``ops.fmatmul`` calls it, in float32
-              (1e-5) and bfloat16 (5e-2), two calls bit-identical. Kernel,
-              plain and library times and the bound; then three explicit
-              cases with ptxas' registers, shared memory and spills:
-              ``fmatmul`` at 128×4096×128 (float32, bfloat16) and
-              ``qmatmul`` at conv0's quantum-128 shape 18432×1152×128;
+              at every (shape, clamp bound, n_true, border) of the person
+              plan at buckets 1 and 8 (``qdwconv`` on the unpadded input,
+              its SAME border fused in); ``paged_qmatmul`` at every shape
+              the paged engines launch plus the 256×256 FC at pages 2/8/32
+              (int8 exact, two calls bit-identical); ``fmatmul`` at
+              (8,16,8), (130,70,33) and the speech model's float FC as
+              ``ops.fmatmul`` calls it, in float32 (1e-5) and bfloat16
+              (5e-2), two calls bit-identical. Kernel, plain and library
+              times and the bound; then the explicit cases, with ptxas'
+              registers, shared memory and spills (a spill in any of the
+              four redesigned kernels fails the run): ``fmatmul`` at
+              128×4096×128 (float32, bfloat16), ``qmatmul`` at conv0's
+              quantum-128 shape 18432×1152×128, ``qdwconv`` through its
+              generic instantiation (5×5/s2, an asymmetric border) and at
+              C = 8, ``paged_qmatmul`` at 8×4000 page 1 and 4×256 page 128;
 5. layers   — person's kernel route walked op by op through the registry,
               each op fed the kernel route's own previous output and held
               against the plain route of the same op on a CPU copy of the
-              same input (exact; softmax ±1 LSB);
+              same input (exact; softmax ±1 LSB); no ``F.pad`` may run
+              inside ``qdwconv_planned`` (the kernel fills the border);
 6. serve    — the first main path, counted: person's ``predict_q`` at batch
               1 and ``predict_q_many`` on batches 1, 3, 8 (``max_batch=8``),
-              every row held against the port's CPU plain route;
+              every row held against the port's CPU plain route, and no
+              border pad before a depthwise layer;
 7. paging   — the second main path, counted: the paged route (Sec. 4.3)
               with ``use_kernels=True`` on sine ``{0: 16, 1: 16}``, speech
               ``{2: 4}`` and person ``{29: 2}`` at ``predict_q`` and buckets
@@ -47,7 +54,7 @@ full width, with random weights from a seed:
               kernel and the device's busy share.
 
 Each phase prints one JSON line (the ``kernels`` phase lists every call it
-timed, and ``explicit`` the three explicit cases); then the ``kernels``
+timed, and ``explicit`` the seven explicit cases); then the ``kernels``
 summary line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises, and the script exits
 non-zero without the last line.
@@ -91,10 +98,18 @@ PAGED_BUCKETS = (1, 4, 8)
 FC256_PAGES = (2, 8, 32)
 FMATMUL_SHAPES = ((8, 16, 8), (130, 70, 33))
 FMATMUL_TOL = {"float32": 1e-5, "bfloat16": 5e-2}
-# the explicit cases: fmatmul at PR 12's padded float speech FC, and qmatmul
-# at person conv0's bucket-8 shape in the quantum-128 layout
+# the explicit cases: fmatmul at the padded float speech FC, qmatmul at
+# person conv0's bucket-8 shape in the quantum-128 layout
 FMATMUL_EXPLICIT = (128, 4096, 128)
 QMATMUL_EXPLICIT = (18432, 1152, 128)
+# qdwconv through its generic instantiation (5x5/s2, an asymmetric border)
+# and at C = 8 (8-byte staging pieces): (x, w, c_true, (stride, pads, z_x));
+# paged_qmatmul at speech's 8 x 4000 page of 1 unit and fc256's 4 x 256
+# page of 128 units (the paged path's own calls): (x, w, page)
+DWCONV_EXPLICIT = (
+    ((2, 12, 11, 32), (5, 5, 32), 20, ((2, 2), (1, 2, 2, 2), 5)),
+    ((8, 48, 48, 8), (3, 3, 8), None, ((1, 1), (1, 1, 1, 1), -3)))
+PAGED_EXPLICIT = (((8, 4000), (4000, 4), 1), ((4, 256), (256, 256), 128))
 
 
 def emit(obj) -> None:
@@ -188,7 +203,8 @@ class recording:
     """Within ``with recording() as calls:`` every kernel wrapper call
     appends its signature to ``calls`` (the launch still happens). A
     ``qmatmul`` signature's w shape is (N, K): the kernel takes the weight
-    transposed."""
+    transposed. A ``qdwconv`` signature's last field is its geometry:
+    (stride, pads, z_x)."""
 
     def __enter__(self):
         from repro_torch.kernels import paged_matmul as pm_mod
@@ -204,11 +220,12 @@ class recording:
                             n_true, None))
             return orig[0](x, w, *consts, lo=lo, hi=hi, n_true=n_true)
 
-        def dw(x, w, *consts, stride, lo, hi, c_true=None):
+        def dw(x, w, *consts, stride, pads=(0, 0, 0, 0), z_x=0, lo, hi,
+               c_true=None):
             current.append(("qdwconv", tuple(x.shape), tuple(w.shape), lo, hi,
-                            c_true, tuple(stride)))
-            return orig[1](x, w, *consts, stride=stride, lo=lo, hi=hi,
-                           c_true=c_true)
+                            c_true, (tuple(stride), tuple(pads), int(z_x))))
+            return orig[1](x, w, *consts, stride=stride, pads=pads, z_x=z_x,
+                           lo=lo, hi=hi, c_true=c_true)
 
         def pm(x, w, *consts, page, lo, hi):
             current.append(("paged_qmatmul", tuple(x.shape), tuple(w.shape),
@@ -235,7 +252,7 @@ class recording:
 def work(sig) -> tuple:
     """(bytes, ops, peak ops/s) of the call: each input read once, each
     output written once; a multiply-add counts as two operations."""
-    kind, xs, ws, *_rest, stride = sig
+    kind, xs, ws, *_rest, geo = sig
     if kind in ("qmatmul", "paged_qmatmul"):
         m, k = xs
         n = ws[0] if kind == "qmatmul" else ws[1]
@@ -247,12 +264,19 @@ def work(sig) -> tuple:
         return (m * k + k * n + m * n) * size, 2 * m * k * n, FLOPS_PER_S[sig[3]]
     if kind == "probe":
         return 2 * xs[0] * xs[1] * 4, xs[0] * xs[1], FLOPS_PER_S["float32"]
+    # qdwconv: the unpadded input (the kernel fills the border itself)
     b, h, w, c = xs
     kh, kw = ws[:2]
-    oh = (h - kh) // stride[0] + 1
-    ow = (w - kw) // stride[1] + 1
+    oh, ow = dw_out_hw(xs, ws, geo)
     return (b * h * w * c + kh * kw * c + 5 * 4 * c + b * oh * ow * c,
             2 * kh * kw * b * oh * ow * c, INT8_OPS_PER_S)
+
+
+def dw_out_hw(xs, ws, geo) -> tuple:
+    """(OH, OW) of a ``qdwconv`` call: its input, window, stride and pads."""
+    (sh, sw), (pt, pb, pl, pr), _ = geo
+    return ((xs[1] + pt + pb - ws[0]) // sh + 1,
+            (xs[2] + pl + pr - ws[1]) // sw + 1)
 
 
 def bound_ms(sig) -> tuple:
@@ -322,12 +346,13 @@ def library_qmatmul(x, w_kn, consts, lo, hi, n_true=None, int_mm=False):
     return q, label
 
 
-def library_qdwconv(x, w, consts, lo, hi, c_true, stride):
-    """Yardstick only: cuDNN grouped float32 convolution (exact here: every
-    sum is an integer below 2**24) + requant in torch."""
+def library_qdwconv(x, w, consts, lo, hi, c_true, geo):
+    """Yardstick only: the border pad, a cuDNN grouped float32 convolution
+    (exact here: every sum is an integer below 2**24) + requant in torch."""
     bias, resc, wsum, coff, zw = consts
+    stride, (pt, pb, pl, pr), z_x = geo
     c = x.shape[-1]
-    xf = x.permute(0, 3, 1, 2).float()
+    xf = F.pad(x, (0, 0, pl, pr, pt, pb), value=z_x).permute(0, 3, 1, 2).float()
     wf = w.permute(2, 0, 1).unsqueeze(1).float()
     acc = F.conv2d(xf, wf, stride=stride, groups=c)
     sx = F.conv2d(xf, torch.ones_like(wf), stride=stride, groups=c)
@@ -353,7 +378,7 @@ def phase_kernels(sigs):
     rows, measured = [], {}
     distinct = sorted(set(sigs), key=lambda s: (s[0], s[1], s[2], str(s[3:])))
     for sig in distinct:
-        kind, xs, ws, lo, hi, lanes, stride = sig
+        kind, xs, ws, lo, hi, lanes, geo = sig
         x, w, consts = random_operands(sig, gen)
         if kind != "fmatmul":
             lo_t = torch.tensor(lo, dtype=torch.float32, device="cuda")
@@ -398,16 +423,17 @@ def phase_kernels(sigs):
             def lib():
                 return torch.matmul(x, w)
         else:
+            dw_kw = dict(stride=geo[0], pads=geo[1], z_x=geo[2], lo=lo, hi=hi,
+                         c_true=lanes)
+
             def kern():
-                return qdwconv(x, w, *consts, stride=stride, lo=lo, hi=hi,
-                               c_true=lanes)
+                return qdwconv(x, w, *consts, **dw_kw)
 
             def plain():
-                return ref.qdwconv_ref(x, w, *consts, stride=stride, lo=lo,
-                                       hi=hi, c_true=lanes)
+                return ref.qdwconv_ref(x, w, *consts, **dw_kw)
 
             def lib():
-                return library_qdwconv(x, w, consts, lo_t, hi_t, lanes, stride)
+                return library_qdwconv(x, w, consts, lo_t, hi_t, lanes, geo)
         got, want, lib_out = kern(), plain(), lib()
         torch.cuda.synchronize()
         if kind == "fmatmul":
@@ -425,10 +451,12 @@ def phase_kernels(sigs):
             err = int((got.to(torch.int32) - want.to(torch.int32)).abs().max())
             check(err == 0, f"{kind} {xs}x{ws} differs from its plain version "
                             f"by up to {err}")
+            check(torch.equal(kern(), got), f"{kind} {xs}x{ws}: two calls "
+                                            f"differ")
             lib_equal = bool(torch.equal(lib_out, want))
         b_ms, b_by = bound_ms(sig)
         m = dict(kind=kind, x=list(xs), w=list(ws), lo=lo, hi=hi,
-                 lanes=lanes, stride=stride, max_abs_err=err,
+                 lanes=lanes, geometry=geo, max_abs_err=err,
                  library=lib_label, library_equal=lib_equal,
                  ms=graph_ms(kern), plain_ms=graph_ms(plain),
                  library_ms=graph_ms(lib), call_ms=cuda_ms(kern),
@@ -438,7 +466,7 @@ def phase_kernels(sigs):
     emit({"phase": "kernels", "shapes": len(rows),
           "per_shape": [{"dtype": r["lo"] if r["kind"] == "fmatmul" else "int8",
                          **{k: r[k] for k in (
-                             "kind", "x", "w", "lanes", "stride",
+                             "kind", "x", "w", "lanes", "geometry",
                              "max_abs_err", "ms", "call_ms", "plain_ms",
                              "library", "library_ms", "library_equal",
                              "bound_ms", "bound_by")}}
@@ -534,12 +562,15 @@ def ptxas_report(log: str) -> dict:
 
 
 def phase_explicit(explicit, measured, built):
-    """The three explicit cases with the ptxas report of the kernels each
-    launches; ptxas must report no spills in either redesigned kernel."""
+    """The explicit cases with the ptxas report of the kernels each
+    launches; ptxas must report no spills in any of the four redesigned
+    kernels."""
+    from repro_torch.kernels import paged_matmul as pm_mod
+    from repro_torch.kernels import qdwconv as dw_mod
     from repro_torch.kernels import qmatmul as mm_mod
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     reports = {name: ptxas_report(built[name]["log"])
-               for name in ("qmatmul", "fmatmul")}
+               for name in ("qmatmul", "fmatmul", "qdwconv", "paged_qmatmul")}
     for name, rep in reports.items():
         check(rep, f"{name}: no ptxas report in the build log")
         spilled = {fn: r for fn, r in rep.items()
@@ -547,20 +578,39 @@ def phase_explicit(explicit, measured, built):
         check(not spilled, f"{name}: ptxas reports spills: {spilled}")
     cases = []
     for sig in explicit:
-        kind, (m, k), ws = sig[:3]
+        kind, xs, ws = sig[:3]
         if kind == "qmatmul":
+            m, k = xs
             bm, bn, bk = mm_mod.block_tile(m, k, ws[0])
-            config = {"block_tile": [bm, bn, bk]}
+            config, mkn = {"block_tile": [bm, bn, bk]}, [m, k, ws[0]]
             tags = [f"qmatmul_kernelILi{bm}ELi{bn}ELi{bk}E"]
-        else:
+        elif kind == "fmatmul":
+            m, k = xs
             splits, kslice = mm_mod.fmatmul_splits(m, k, ws[1], sms)
-            config = {"splits": splits, "kslice": kslice}
+            config, mkn = {"splits": splits, "kslice": kslice}, [m, k, ws[1]]
             t = "f" if sig[3] == "float32" else "13__nv_bfloat16"
             tags = [f"fmatmul_kernelI{t}E", f"fmatmul_reduceI{t}E"]
+        elif kind == "paged_qmatmul":
+            m, k = xs
+            sc, kc, flat = pm_mod.paged_split(k, ws[1], sig[5])
+            config = {"page": sig[5], "slice": sc, "kc": kc, "flat": flat,
+                      "blocks": pm_mod.paged_blocks(m, ws[1], sig[5], sc)}
+            mkn, tags = [m, k, ws[1]], ["paged_qmatmul_kernel"]
+        else:
+            (sh, sw), pads, z_x = sig[6]
+            oh, ow = dw_out_hw(xs, ws, sig[6])
+            tile = dw_mod.dw_tile(xs[0], oh, ow, xs[3], ws[0], ws[1], sh, sw)
+            config = {"stride": [sh, sw], "pads": list(pads), "z_x": z_x,
+                      "tile_cg_th_tpg": list(tile),
+                      "blocks": dw_mod.dw_blocks(xs[0], oh, ow, xs[3], tile)}
+            mkn = list(xs) + list(ws)
+            geo = (ws[0], ws[1], sh, sw) if ws[:2] == (3, 3) and sh == sw \
+                and sh in (1, 2) else (0, 0, 0, 0)
+            tags = ["qdwconv_kernelI" + "".join(f"Li{g}E" for g in geo)]
         r = measured[sig]
         cases.append({
             "kind": kind, "dtype": sig[3] if kind == "fmatmul" else "int8",
-            "mkn": [m, k, ws[0] if kind == "qmatmul" else ws[1]], **config,
+            "shape": mkn, **config,
             **{key: r[key] for key in ("ms", "plain_ms", "library",
                                        "library_ms", "bound_ms", "bound_by",
                                        "max_abs_err")},
@@ -770,6 +820,37 @@ def phase_routes(cases):
 # layer by layer
 # ---------------------------------------------------------------------------
 
+class counting_border_pads:
+    """Within ``with counting_border_pads() as n:``, ``n["pads"]`` counts
+    the ``F.pad`` calls made inside ``kernels.ops.qdwconv_planned`` and
+    ``n["calls"]`` its calls: the SAME border is the kernel's, so no pad may
+    run before a depthwise layer."""
+
+    def __enter__(self):
+        from repro_torch.kernels import ops as kops
+        self.kops, self.orig = kops, (F.pad, kops.qdwconv_planned)
+        n = {"pads": 0, "calls": 0, "inside": False}
+        orig_pad, orig_planned = self.orig
+
+        def pad(*a, **k):
+            n["pads"] += n["inside"]
+            return orig_pad(*a, **k)
+
+        def planned(*a, **k):
+            n["inside"], n["calls"] = True, n["calls"] + 1
+            try:
+                return orig_planned(*a, **k)
+            finally:
+                n["inside"] = False
+
+        F.pad, kops.qdwconv_planned = pad, planned
+        return n
+
+    def __exit__(self, *exc):
+        F.pad, self.kops.qdwconv_planned = self.orig
+        return False
+
+
 def phase_layers(cm, qg, x):
     from repro_torch.core import registry as R
     from repro_torch.core.engine import ExecutionPlan
@@ -789,13 +870,17 @@ def phase_layers(cm, qg, x):
         return v
 
     layers = []
+    border = {"pads": 0, "calls": 0}
     for i, op in enumerate(qg.ops):
         lay = layouts.get(i)
         ctx_k = R.OpContext(qg, op, i, folded=dev_plan.folded.get(i),
                             use_kernels=True, layout=lay)
         ctx_p = R.OpContext(qg, op, i, folded=cpu_plan.folded.get(i))
-        out_k = R.run_compiled(ctx_k, [val(dev_plan, t, lay is not None)
-                                       for t in op.inputs])
+        with counting_border_pads() as n:
+            out_k = R.run_compiled(ctx_k, [val(dev_plan, t, lay is not None)
+                                           for t in op.inputs])
+        border["pads"] += n["pads"]
+        border["calls"] += n["calls"]
         ins_p = [cpu_plan.consts[t] if t in cpu_plan.consts
                  else val(dev_plan, t, False).cpu() for t in op.inputs]
         out_p = R.run_compiled(ctx_p, ins_p)
@@ -817,9 +902,13 @@ def phase_layers(cm, qg, x):
                            shape=list(y.shape), max_abs_diff=diff,
                            inside_share=round(inside, 4)))
         env[op.outputs[0]] = out_k
+    check(border == {"pads": 0, "calls": LAUNCHES_PER_FORWARD["qdwconv"]},
+          f"depthwise layers: {border['calls']} calls, {border['pads']} "
+          f"separate border pads (expected none)")
     emit({"phase": "layers", "ops": len(layers),
           "kernel_ops": sum(1 for r in layers if r["route"] == "kernel"),
-          "layers": layers})
+          "depthwise_calls": border["calls"],
+          "border_pads_before_depthwise": border["pads"], "layers": layers})
 
 
 # ---------------------------------------------------------------------------
@@ -918,13 +1007,17 @@ def main() -> int:
     check(conv0[0] == "qmatmul", f"first call of a forward: {conv0}")
     qm_m, qm_k, qm_n = QMATMUL_EXPLICIT
     fm_m, fm_k, fm_n = FMATMUL_EXPLICIT
-    explicit = [("qmatmul", (qm_m, qm_k), (qm_n, qm_k)) + conv0[3:]] + [
+    paged_sigs = ([s for pc in paged_calls.values() for b in pc
+                   for s in pc[b] if s[0] == "paged_qmatmul"]
+                  + [s for s in fc_calls if s[0] == "paged_qmatmul"])
+    explicit = ([("qmatmul", (qm_m, qm_k), (qm_n, qm_k)) + conv0[3:]] + [
         ("fmatmul", (fm_m, fm_k), (fm_k, fm_n), dtype, None, None, None)
         for dtype in ("float32", "bfloat16")]
-    sigs = ([s for b in calls for s in calls[b]]
-            + [s for pc in paged_calls.values() for b in pc for s in pc[b]
-               if s[0] == "paged_qmatmul"]
-            + [s for s in fc_calls if s[0] == "paged_qmatmul"] + fm_sigs
+        + [("qdwconv", xs, ws, -20.0, 90.0, lanes, geo)
+           for xs, ws, lanes, geo in DWCONV_EXPLICIT]
+        + [next(s for s in paged_sigs if s[1:3] == (xs, ws) and s[5] == page)
+           for xs, ws, page in PAGED_EXPLICIT])
+    sigs = ([s for b in calls for s in calls[b]] + paged_sigs + fm_sigs
             + explicit)
     measured = phase_kernels(sigs)
     phase_explicit(explicit, measured, built)
@@ -933,9 +1026,10 @@ def main() -> int:
     # -- the first main path, counted ----------------------------------------
     want_rows = plain_cpu.predict_q_many(xq, max_batch=MAX_BATCH)
     reset_counts()
-    single = cm.predict_q(xq[0])
-    served = {b: cm.predict_q_many(xq[:b], max_batch=MAX_BATCH)
-              for b in SERVE_BATCHES}
+    with counting_border_pads() as border:
+        single = cm.predict_q(xq[0])
+        served = {b: cm.predict_q_many(xq[:b], max_batch=MAX_BATCH)
+                  for b in SERVE_BATCHES}
     torch.cuda.synchronize()
     launches = {k: v for k, v in launch_counts().items()
                 if k in LAUNCHES_PER_FORWARD}
@@ -943,6 +1037,8 @@ def main() -> int:
     check(launches == {k: v * n_forwards
                        for k, v in LAUNCHES_PER_FORWARD.items()},
           f"launches {launches} for {n_forwards} forwards")
+    check(border["pads"] == 0, f"{border['pads']} border pads before the "
+                               f"depthwise layers of {n_forwards} forwards")
 
     def close(got, want):
         d = np.abs(got.astype(np.int32) - want.astype(np.int32))
@@ -958,6 +1054,7 @@ def main() -> int:
         lambda b=b: cm.predict_q_many(xq[:b], max_batch=MAX_BATCH))
         for b in SERVE_BATCHES}
     emit({"phase": "serve", "launches": launches, "forwards": n_forwards,
+          "border_pads_before_depthwise": border["pads"],
           "softmax_max_abs_diff": max(close(single, want_rows[0]),
                                       *(close(o, want_rows[:b])
                                         for b, o in served.items())),

@@ -13,7 +13,8 @@ Two families of entry points, with the JAX package's shapes:
   only at graph entry), and the output stays padded with its padding lanes
   zeroed by the kernel.
 
-Both families pre-pad SAME borders with the input zero point. Besides them:
+Both families give SAME borders the input zero point: the conv wrappers
+pre-pad them, the depthwise kernel fills them itself. Besides them:
 ``paged_fc`` (the engine's paged route on logical shapes), ``fmatmul`` (the
 float FullyConnected product) and ``can_launch_kernels`` (the probe that
 builds and launches a trivial kernel once and says why the kernel route is
@@ -261,33 +262,47 @@ def qconv_planned(x_q, lay, *, kh, kw, stride, padding):
 # DEPTHWISE_CONV_2D
 # ---------------------------------------------------------------------------
 
+def _border(x_q, kh, kw, stride, padding):
+    """The (top, bottom, left, right) border of a SAME conv over NHWC
+    ``x_q`` (all zero for VALID): the depthwise kernel fills it itself."""
+    if padding == "VALID":
+        return (0, 0, 0, 0)
+    (pt, pb), (pl, pr) = same_pads(x_q.shape[1], x_q.shape[2], kh, kw, stride)
+    return pt, pb, pl, pr
+
+
 def qdwconv_folded(x_q, w_q, fc: FoldedConsts, *, stride, padding,
                    fused: str = "NONE"):
-    """Folded Eq. (9) on the depthwise kernel, logical NHWC in/out; SAME
-    borders pre-padded with z_X, channels padded to a multiple of 8."""
+    """Folded Eq. (9) on the depthwise kernel, logical NHWC in/out; channels
+    zero-padded to a multiple of 8, the reference's smallest channel block
+    (the kernel then stages 8-byte pieces), the SAME border filled with z_X
+    inside the kernel."""
     stride = tuple(stride)
     kh, kw, c, mult = w_q.shape
     if mult != 1:
         raise ValueError("depth multiplier 1 only")
     lo, hi = clamp_bounds(fc, fused)
-    x_q = pad_input_q(x_q, kh, kw, stride, padding, fc.z_x)
     c_pad = round_up(c, 8)
+    pads = _border(x_q, kh, kw, stride, padding)
     x_q = _lane_pad(x_q, c_pad).contiguous()
     w3 = _lane_pad(w_q[..., 0], c_pad).contiguous()
     consts = _pad_channel_consts(fc, c, c_pad, x_q.device)
-    out = _dw.qdwconv(x_q, w3, *consts, stride=stride, lo=lo, hi=hi)
+    out = _dw.qdwconv(x_q, w3, *consts, stride=stride, pads=pads,
+                      z_x=int(fc.z_x), lo=lo, hi=hi)
     return out[..., :c]
 
 
 def qdwconv_planned(x_q, lay, *, stride, padding):
-    """Planned-layout DepthwiseConv2D: lane-padded NHWC in/out. Depthwise
-    math never mixes lanes, so borders may carry z_X on padding lanes too —
-    those outputs are zeroed by the kernel (``c_true``)."""
+    """Planned-layout DepthwiseConv2D: lane-padded NHWC in/out. The kernel
+    fills the SAME border with z_X on every lane (depthwise math never
+    mixes lanes; the padding lanes' outputs are zeroed by ``c_true``), so
+    no pad runs before it."""
     stride = tuple(stride)
     kh, kw, _ = lay.w_phys.shape
     x_q = _lane_pad(x_q, lay.in_lanes)
-    x_q = pad_input_q(x_q, kh, kw, stride, padding, lay.z_x)
     return _dw.qdwconv(x_q.contiguous(),
                        torch.as_tensor(lay.w_phys, device=x_q.device),
                        *_planned_consts(lay, x_q.device), stride=stride,
-                       lo=lay.lo, hi=lay.hi, c_true=_n_true(lay))
+                       pads=_border(x_q, kh, kw, stride, padding),
+                       z_x=int(lay.z_x), lo=lay.lo, hi=lay.hi,
+                       c_true=_n_true(lay))

@@ -1,7 +1,7 @@
 """Plain PyTorch versions of the hand-written kernels — the port of
 ``repro.kernels.ref``.
 
-Each computes exactly the function its CUDA kernel computes (pre-padded /
+Each computes exactly the function its CUDA kernel computes (border pads /
 per-channel argument convention, explicit clamp bounds, ``n_true`` /
 ``c_true`` lane zeroing), in the kernel's epilogue order. The wrappers run
 them for CPU tensors; on the card only comparisons call them. They run on
@@ -12,6 +12,7 @@ any device: integer products are int32 on the CPU and float64 on CUDA
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core.ops_ref import I8_MAX, I8_MIN, _no_tf32, dw_acc, imatmul
 
@@ -82,9 +83,15 @@ def fmatmul_ref(x, w):
 
 
 def qdwconv_ref(x_q, w_q, bias_term, rescale, w_sum_zx, const_off, z_w, *,
-                stride, lo=float("-inf"), hi=float("inf"), c_true=None):
-    """Plain version of ``kernels.qdwconv.qdwconv``: x_q (B,H,W,C)
-    pre-padded, w_q (kh,kw,C); VALID conv; channels >= ``c_true`` are 0."""
+                stride, pads=(0, 0, 0, 0), z_x=0, lo=float("-inf"),
+                hi=float("inf"), c_true=None):
+    """Plain version of ``kernels.qdwconv.qdwconv``: x_q (B,H,W,C), w_q
+    (kh,kw,C); the border ``pads`` = (top, bottom, left, right) is filled
+    with ``z_x`` on every lane, then a VALID conv; channels >= ``c_true``
+    are 0."""
+    pt, pb, pl, pr = (int(p) for p in pads)
+    if pt or pb or pl or pr:
+        x_q = F.pad(x_q, (0, 0, pl, pr, pt, pb), value=int(z_x))
     acc, sum_x = dw_acc(x_q.to(torch.int32), w_q.to(torch.int32),
                         tuple(stride))
     return _requant(acc, sum_x, bias_term, rescale, w_sum_zx, const_off, z_w,

@@ -51,19 +51,34 @@ def test_qmatmul_kernel_equals_plain(gen, m, k, n, n_true, lo, hi):
                                rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("shape,stride,c_true", [((1, 98, 98, 128), 2, 8),
-                                                 ((8, 14, 14, 128), 1, 64),
-                                                 ((2, 7, 7, 256), 1, None)])
-def test_qdwconv_kernel_equals_plain(gen, shape, stride, c_true):
+@pytest.mark.parametrize("shape,kk,stride,pads,c_true", [
+    ((1, 98, 98, 128), 3, 2, (0, 0, 0, 0), 8),    # pre-padded (VALID)
+    ((8, 14, 14, 128), 3, 1, (0, 0, 0, 0), 64),
+    ((2, 7, 7, 256), 3, 1, (0, 0, 0, 0), None),
+    ((8, 48, 48, 32), 3, 1, (1, 1, 1, 1), 8),     # 3x3/s1 instantiation
+    ((8, 48, 48, 32), 3, 2, (0, 1, 0, 1), 16),    # 3x3/s2, asymmetric
+    ((1, 3, 3, 256), 3, 1, (1, 1, 1, 1), None),
+    ((2, 12, 11, 32), 5, 2, (1, 2, 2, 2), 20),    # generic, asymmetric
+    ((1, 10, 10, 8), 5, 1, (2, 2, 2, 2), 5),      # generic, C = 8
+    ((3, 96, 96, 8), 3, 2, (0, 1, 0, 1), None),   # C = 8 (8-byte pieces)
+    ((8, 95, 95, 8), 3, 1, (1, 1, 1, 1), None),   # ragged bands of 2 rows
+    ((1, 9, 9, 12), 3, 1, (1, 1, 1, 1), 10),      # C = 12 (4-byte pieces)
+])
+def test_qdwconv_kernel_equals_plain(gen, shape, kk, stride, pads, c_true):
+    """Every instantiation (3x3/s1, 3x3/s2, the generic one), the SAME
+    border fused in (z_x on every lane, asymmetric pads), 16-, 8- and
+    4-byte staging pieces, and bands that do not divide the output; two
+    calls give the same bits."""
     from repro_torch.kernels import qdwconv as dw, ref
-    x, w, c = _operands(gen, shape, (3, 3, shape[-1]), shape[-1])
+    x, w, c = _operands(gen, shape, (kk, kk, shape[-1]), shape[-1])
+    kw = dict(stride=(stride, stride), pads=pads, z_x=-7, lo=-5.0, hi=100.0,
+              c_true=c_true)
     before = dw.launches
-    got = dw.qdwconv(x, w, *c, stride=(stride, stride), lo=-5.0, hi=100.0,
-                     c_true=c_true)
+    got = dw.qdwconv(x, w, *c, **kw)
     assert dw.launches == before + 1
-    torch.testing.assert_close(got, ref.qdwconv_ref(
-        x, w, *c, stride=(stride, stride), lo=-5.0, hi=100.0, c_true=c_true),
-        rtol=0, atol=0)
+    torch.testing.assert_close(got, ref.qdwconv_ref(x, w, *c, **kw), rtol=0,
+                               atol=0)
+    assert torch.equal(dw.qdwconv(x, w, *c, **kw), got)
 
 
 def test_wrapper_rejects_misaligned_rows(gen):
@@ -92,15 +107,19 @@ def test_person_engine_on_card_equals_cpu_plain_route(gen):
     assert np.abs(got.astype(int) - want.astype(int)).max() <= 1
 
 
-@pytest.mark.parametrize("m,k,n,page", [(1, 1, 16, 1), (8, 16, 16, 1),
-                                        (8, 4000, 4, 1), (8, 256, 2, 1),
-                                        (4, 256, 256, 128), (4, 256, 256, 8),
-                                        (7, 45, 300, 150), (9, 333, 512, 512)])
+@pytest.mark.parametrize("m,k,n,page", [
+    (1, 1, 16, 1), (8, 16, 16, 1), (4, 256, 16, 1), (8, 4000, 4, 1),
+    (1, 4000, 4, 1), (8, 256, 2, 1), (1, 256, 256, 128), (4, 256, 256, 128),
+    (9, 256, 256, 128), (4, 256, 256, 8), (7, 45, 300, 150),
+    (9, 333, 512, 512), (3, 100000, 4, 1)])
 @pytest.mark.parametrize("lo,hi", [(float("-inf"), float("inf")), (-3.0, 57.7)])
 def test_paged_qmatmul_kernel_equals_plain(gen, m, k, n, page, lo, hi):
     """The paged kernel at the paper models' paged shapes (sine, speech,
-    person at bucket 8), fc256's pages, an odd K and a page wider than
-    one staging slice."""
+    person), page 1 at K = 1, 16, 256 and 4000, the 256-wide FC at page 128
+    (split into slices) with M = 1, 4 and 9, a page of 8, an odd K, a
+    ragged last slice, and a K staged in chunks; bit-exact, and two calls
+    give the same bits (the K split adds its partial sums in a fixed
+    order)."""
     from repro_torch.kernels import paged_matmul as pm, ref
     x, w, c = _operands(gen, (m, k), (k, n), n)
     before = pm.launches
@@ -108,6 +127,8 @@ def test_paged_qmatmul_kernel_equals_plain(gen, m, k, n, page, lo, hi):
     assert pm.launches == before + 1
     torch.testing.assert_close(got, ref.paged_qmatmul_ref(
         x, w, *c, page=page, lo=lo, hi=hi), rtol=0, atol=0)
+    assert torch.equal(pm.paged_qmatmul(x, w, *c, page=page, lo=lo, hi=hi),
+                       got)
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),

@@ -15,12 +15,15 @@ import pytest
 import torch
 
 from repro.core.ops_ref import FoldedConsts as JFolded
+from repro.core.ops_ref import pad_input_q as j_pad_input_q
+from repro.core.quantize import quantize_graph as j_quantize
 from repro.kernels import ops as jops
 from repro.kernels.qconv import im2col_q as j_im2col
 from repro.kernels.qdwconv import qdwconv as j_qdwconv
 from repro.kernels.qmatmul import fmatmul as j_fmatmul
 from repro.kernels.qmatmul import qmatmul as j_qmatmul
 from repro_torch.core.ops_ref import FoldedConsts as TFolded, clamp_bounds
+from repro_torch.core.ops_ref import same_pads
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import qdwconv as dw_mod
 from repro_torch.kernels import qmatmul as mm_mod
@@ -127,6 +130,92 @@ def test_qdwconv_ref_matches_pallas(b, hw, c, kk, stride, c_true, fused):
     assert dw_mod.launches == before
 
 
+@pytest.mark.parametrize("b,hw,c,kk,stride,c_true", [
+    (2, (8, 8), 8, 3, (1, 1), None),      # pads (1, 1, 1, 1)
+    (1, (9, 9), 8, 3, (2, 2), 5),         # odd: (1, 1, 1, 1)
+    (1, (10, 7), 16, 3, (2, 2), None),    # even H: (0, 1), odd W: (1, 1)
+    (2, (14, 14), 128, 3, (1, 1), 64),
+    (1, (12, 10), 16, 5, (2, 2), None),   # (1, 2, 1, 2)
+    (1, (11, 13), 8, 5, (1, 1), 3),       # (2, 2, 2, 2)
+    (2, (6, 5), 128, 5, (2, 2), 100),     # (1, 2, 2, 2)
+])
+@pytest.mark.parametrize("fused", FUSED)
+def test_qdwconv_fused_border_matches_pallas(b, hw, c, kk, stride, c_true,
+                                             fused):
+    """The kernel's contract with the SAME border fused in: the plain
+    version (and the wrapper on CPU tensors), given the unpadded x, the
+    pads and z_x, equals the JAX package's ``pad_input_q`` followed by its
+    Pallas kernel on the pre-padded input (``interpret=True``)."""
+    rng = np.random.default_rng(c * 10 + kk + b)
+    x, w = _i8(rng, (b,) + hw + (c,)), _i8(rng, (kk, kk, c))
+    cst = _consts(rng, c, rng.integers(-8, 9, c).astype(np.int32))
+    lo, hi = _bounds(cst, fused)
+    z_x = -9
+    (pt, pb), (pl, pr) = same_pads(hw[0], hw[1], kk, kk, stride)
+    xp = j_pad_input_q(jnp.asarray(x), kk, kk, stride, "SAME", z_x)
+    oh = (xp.shape[1] - kk) // stride[0] + 1
+    ow = (xp.shape[2] - kk) // stride[1] + 1
+    want = j_qdwconv(xp, jnp.asarray(w), *(jnp.asarray(v) for v in cst),
+                     stride=stride, out_hw=(oh, ow), bc=min(c, 128), lo=lo,
+                     hi=hi, c_true=c_true, interpret=True)
+    kw = dict(stride=stride, pads=(pt, pb, pl, pr), z_x=z_x, lo=lo, hi=hi,
+              c_true=c_true)
+    assert_i8_equal(ref.qdwconv_ref(t(x), t(w), *(t(v) for v in cst), **kw),
+                    want)
+    before = dw_mod.launches
+    assert_i8_equal(t_qdwconv(t(x), t(w), *(t(v) for v in cst), **kw), want)
+    assert dw_mod.launches == before
+
+
+def test_qdwconv_planned_runs_no_pad(tmp_path, monkeypatch):
+    """Over a forward of a person-shaped graph on the kernel route, no
+    ``F.pad`` runs inside ``qdwconv_planned`` outside the kernel's wrapper:
+    the SAME border is the kernel's. (On CPU tensors the wrapper's plain
+    version pads, as the kernel reads z_x, so it is excluded.) Every
+    depthwise layer still reaches the wrapper once."""
+    import torch.nn.functional as F
+    from repro_torch.core.engine import CompiledModel
+    from _torch_parity import carry, person_like
+
+    rng = np.random.default_rng(4)
+    jq = j_quantize(person_like(rng), [rng.normal(0, 1, (1, 24, 24, 1))
+                                       .astype("f")])
+    cm = CompiledModel(carry(jq, tmp_path), device="cpu")
+    xs = np.stack([jq.tensor(jq.inputs[0]).qparams.quantize(
+        rng.normal(0, 1, (1, 24, 24, 1)).astype("f")) for _ in range(3)])
+    state = {"in_planned": False, "in_kernel": False, "pads": 0, "calls": 0}
+    orig_pad, orig_planned, orig_kernel = F.pad, tops.qdwconv_planned, \
+        tops._dw.qdwconv
+
+    def pad(*a, **k):
+        if state["in_planned"] and not state["in_kernel"]:
+            state["pads"] += 1
+        return orig_pad(*a, **k)
+
+    def planned(*a, **k):
+        state["in_planned"] = True
+        try:
+            return orig_planned(*a, **k)
+        finally:
+            state["in_planned"] = False
+
+    def kernel(*a, **k):
+        state["in_kernel"], state["calls"] = True, state["calls"] + 1
+        try:
+            return orig_kernel(*a, **k)
+        finally:
+            state["in_kernel"] = False
+
+    monkeypatch.setattr(F, "pad", pad)
+    monkeypatch.setattr(tops, "qdwconv_planned", planned)
+    monkeypatch.setattr(tops._dw, "qdwconv", kernel)
+    cm.predict_q(xs[0])
+    cm.predict_q_many(xs, max_batch=4)
+    n_dw = sum(op.op == "DEPTHWISE_CONV_2D" for op in jq.ops)
+    assert state["calls"] == 2 * n_dw
+    assert state["pads"] == 0
+
+
 @pytest.mark.parametrize("hw,c,kk,stride,padding", [
     ((8, 8), 3, 3, (1, 1), "SAME"), ((9, 9), 5, 3, (2, 2), "SAME"),
     ((12, 10), 8, 5, (2, 2), "VALID"), ((96, 96), 8, 3, (2, 2), "SAME")])
@@ -211,18 +300,80 @@ def test_qmatmul_wrapper_rejects(bad):
         t_qmatmul(*args)
 
 
-@pytest.mark.parametrize("bad", ["c_not_4", "w_shape", "x_dtype"])
+@pytest.mark.parametrize("bad", ["c_not_4", "w_shape", "x_dtype",
+                                 "negative_pad", "pad_wider_than_window",
+                                 "unread_bottom_pad", "unread_right_pad",
+                                 "z_x_range"])
 def test_qdwconv_wrapper_rejects(bad):
+    """Besides the operands: a pad below zero, a pad as wide as the window
+    (an output read only from the border), a bottom or right pad the window
+    walk never reads (the output size the pads give disagrees with the
+    input's), and a z_x that is no int8."""
     rng = np.random.default_rng(1)
     c = 6 if bad == "c_not_4" else 8
     x, w = t(_i8(rng, (1, 5, 5, c))), t(_i8(rng, (3, 3, c)))
     cst = [t(v) for v in _consts(rng, c, 0)]
+    kw = dict(stride=(1, 1))
     if bad == "w_shape":
         w = w[..., :4]
     elif bad == "x_dtype":
         x = x.to(torch.int16)
+    elif bad == "negative_pad":
+        kw["pads"] = (1, -1, 1, 1)
+    elif bad == "pad_wider_than_window":
+        kw["pads"] = (3, 0, 0, 0)
+    elif bad == "unread_bottom_pad":
+        kw = dict(stride=(2, 2), pads=(0, 1, 0, 0))  # 5 + 1 rows, walk reads 5
+    elif bad == "unread_right_pad":
+        kw = dict(stride=(2, 2), pads=(0, 0, 0, 1))  # 5 + 1 cols, walk reads 5
+    elif bad == "z_x_range":
+        kw.update(pads=(1, 1, 1, 1), z_x=128)
     with pytest.raises((ValueError, TypeError)):
-        t_qdwconv(x, w, *cst, stride=(1, 1))
+        t_qdwconv(x, w, *cst, **kw)
+
+
+#: person's 13 depthwise layers at the 32-lane quantum: (unpadded H = W,
+#: lanes, stride)
+PERSON_DW = [(48, 32, 1), (48, 32, 2), (24, 32, 1), (24, 32, 2), (12, 64, 1),
+             (12, 64, 2)] + [(6, 128, 1)] * 5 + [(6, 128, 2), (3, 256, 1)]
+
+
+@pytest.mark.parametrize("b", [1, 8])
+@pytest.mark.parametrize("layer", range(len(PERSON_DW)))
+def test_qdwconv_tile(b, layer):
+    """``dw_tile`` on person's 13 depthwise layers at buckets 1 and 8: at
+    most 256 threads and 48 KB of shared memory a block, channel groups of
+    a whole 32-byte sector that divide C (so every staging copy is 16
+    bytes), the band no taller than the output, and at least 12 blocks."""
+    h, c, s = PERSON_DW[layer]
+    (pt, pb), (pl, pr) = same_pads(h, h, 3, 3, (s, s))
+    oh = (h + pt + pb - 3) // s + 1
+    cg, th, tpg = dw_mod.dw_tile(b, oh, oh, c, 3, 3, s, s)
+    assert cg * th * tpg <= dw_mod.MAX_THREADS
+    assert dw_mod.dw_smem(cg, th, tpg, 3, 3, s, s) <= 48 * 1024
+    assert cg * dw_mod.V == 32 and c % (cg * dw_mod.V) == 0
+    assert (cg * dw_mod.V) % 16 == 0
+    assert 1 <= th <= oh and 1 <= tpg <= oh
+    blocks = dw_mod.dw_blocks(b, oh, oh, c, (cg, th, tpg))
+    assert blocks >= 12 * b
+    assert blocks == b * -(-oh // th) * -(-oh // tpg) * (c // 32)
+
+
+@pytest.mark.parametrize("b,h,w,c,kk,s", [
+    (8, 95, 95, 8, 3, 1),     # a band of 2 rows: ragged bands and columns
+    (1, 96, 96, 8, 3, 2), (2, 12, 11, 32, 5, 2), (1, 200, 200, 512, 3, 1),
+    (1, 30, 30, 4, 7, 1)])
+def test_qdwconv_tile_bounds(b, h, w, c, kk, s):
+    """The tile rule away from person's shapes: the block stays within its
+    thread and shared-memory budgets, and the grid covers the output."""
+    oh, ow = -(-h // s), -(-w // s)
+    cg, th, tpg = dw_mod.dw_tile(b, oh, ow, c, kk, kk, s, s)
+    assert cg * th * tpg <= dw_mod.MAX_THREADS
+    assert dw_mod.dw_smem(cg, th, tpg, kk, kk, s, s) <= 48 * 1024
+    assert c % (cg * dw_mod.V) == 0
+    assert -(-oh // th) * th >= oh and -(-ow // tpg) * tpg >= ow
+    if (b, h, c) == (8, 95, 8):
+        assert (cg, th, tpg) == (2, 2, 64)
 
 
 # ---------------------------------------------------------------------------

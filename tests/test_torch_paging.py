@@ -110,18 +110,60 @@ def test_paged_equals_unpaged_kernel():
                                            JFolded(**fc), "RELU", paged=True))
 
 
-@pytest.mark.parametrize("bad", ["page_not_dividing", "x_dtype", "const_shape"])
+@pytest.mark.parametrize("bad", ["page_not_dividing", "x_dtype", "const_shape",
+                                 "page_zero", "k_mismatch", "w_dtype"])
 def test_paged_qmatmul_wrapper_rejects(bad):
     rng = np.random.default_rng(3)
     x, w = t(_i8(rng, (3, 10))), t(_i8(rng, (10, 12)))
     c = [t(v) for v in _consts(rng, 12, 1)]
-    page = 5 if bad == "page_not_dividing" else 4
+    page = {"page_not_dividing": 5, "page_zero": 0}.get(bad, 4)
     if bad == "x_dtype":
         x = x.to(torch.int32)
     elif bad == "const_shape":
         c[1] = c[1][:4]
+    elif bad == "k_mismatch":
+        w = w[:8].contiguous()
+    elif bad == "w_dtype":
+        w = w.to(torch.int16)
     with pytest.raises((ValueError, TypeError)):
         pm_mod.paged_qmatmul(x, w, *c, page=page)
+
+
+#: (M, K, N, page) of the paged route: sine, speech and person at one unit
+#: a page, the 256 x 256 FC at its three page sizes, at M = 1, 4 and 8.
+PAGED_SHAPES = [(m, k, n, p) for m in (1, 4, 8) for k, n, p in [
+    (1, 16, 1), (16, 16, 1), (4000, 4, 1), (256, 2, 1), (256, 256, 128),
+    (256, 256, 32), (256, 256, 8)]]
+
+
+@pytest.mark.parametrize("m,k,n,page", PAGED_SHAPES)
+def test_paged_split(m, k, n, page):
+    """``paged_split`` on the paged shapes: a slice of at most 16 units of
+    one page (16 blocks or more for the 256-wide FC, whatever its page),
+    all of K in one stage of whole 16-byte pieces within the shared-memory
+    budget, and W read as the contiguous rows of a narrow matrix (N up to
+    the 32 bytes of one row's segments) or as each row's segments."""
+    sc, kc, flat = pm_mod.paged_split(k, n, page)
+    assert sc == min(page, pm_mod.SLICE) and page % sc == 0
+    assert kc % 16 == 0 and k <= kc < k + 16
+    assert flat == (n <= 32)
+    assert pm_mod.paged_smem(n, sc, kc, flat) <= pm_mod.SMEM_BYTES
+    blocks = pm_mod.paged_blocks(m, n, page, sc)
+    assert blocks == (n // page) * (page // sc) * -(-m // pm_mod.BM)
+    if n == 256:
+        assert blocks >= 16
+
+
+@pytest.mark.parametrize("k,n,page", [(100000, 4, 1), (4000, 1024, 1024),
+                                      (45, 300, 150)])
+def test_paged_split_chunks_long_k(k, n, page):
+    """Where all of K does not fit the budget, K is staged in chunks of a
+    multiple of 16 bytes that do; a ragged page keeps a ragged last slice."""
+    sc, kc, flat = pm_mod.paged_split(k, n, page)
+    assert kc % 16 == 0 and 16 <= kc
+    assert pm_mod.paged_smem(n, sc, kc, flat) <= pm_mod.SMEM_BYTES
+    assert kc < k or kc == -(-k // 16) * 16
+    assert pm_mod.paged_blocks(1, n, page, sc) == (n // page) * -(-page // sc)
 
 
 # ---------------------------------------------------------------------------
