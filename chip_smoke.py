@@ -3,8 +3,13 @@
     python3 chip_smoke.py
 
 Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
-(into ``build/repro_torch_kernels/``), then drives two paths of the port at
-full width, with random weights from a seed:
+(into ``build/repro_torch_kernels/``), then drives three paths of the port
+at full width, with random weights from a seed. A bucket call of the engine
+is a CUDA-graph replay: the first call of a bucket runs its batched forward
+once eagerly and captures it (two forwards' kernel-wrapper calls), and a
+replay calls no wrapper. So the counted phases check the calls each
+bucket's graph holds (``compile_log``), the total over eager runs and
+captures, and that replays leave every launch counter where it was.
 
 1. device   — the card, as torch and nvidia-smi see it;
 2. build    — nvcc time of every kernel source, built in parallel;
@@ -34,9 +39,11 @@ full width, with random weights from a seed:
               same input (exact; softmax ±1 LSB); no ``F.pad`` may run
               inside ``qdwconv_planned`` (the kernel fills the border);
 6. serve    — the first main path, counted: person's ``predict_q`` at batch
-              1 and ``predict_q_many`` on batches 1, 3, 8 (``max_batch=8``),
-              every row held against the port's CPU plain route, and no
-              border pad before a depthwise layer;
+              1 and ``predict_q_many`` on batches 1, 3, 8 (``max_batch=8``):
+              each captured bucket's graph holds 15 ``qmatmul`` + 13
+              ``qdwconv`` calls, replays call none; every row held against
+              the port's CPU plain route, and no border pad before a
+              depthwise layer;
 7. paging   — the second main path, counted: the paged route (Sec. 4.3)
               with ``use_kernels=True`` on sine ``{0: 16, 1: 16}``, speech
               ``{2: 4}`` and person ``{29: 2}`` at ``predict_q`` and buckets
@@ -45,13 +52,33 @@ full width, with random weights from a seed:
               are built inside the count with the probe's cache cleared.
               Every row equals the card's unpaged engine and the port's CPU
               plain paged route (paged FC logits exact; softmax ±1 LSB);
-              paged launches per forward are checked (sine 2, speech 1,
-              person 1), with ``plan_paged`` beside ``plan_stack`` bytes and
-              bucket-8 call times of the paged and unpaged engines;
+              paged calls per forward and per bucket graph are checked
+              (sine 2, speech 1, person 1), with ``plan_paged`` beside
+              ``plan_stack`` bytes and bucket-8 call times of the paged and
+              unpaged engines;
 8. routes   — ``predict_q_routed`` on person, and on speech with its paging
-              map, for every route: all rows equal the primary route's;
-9. trace    — torch.profiler over person bucket-8 forwards: device time by
-              kernel and the device's busy share.
+              map, for every route (both engine routes captured on the
+              card): all rows equal the primary route's;
+9. serving  — the third main path, counted: ``build_paper_registry`` of
+              sine, speech and person at full width on the card (real
+              clock, ``max_batch=32``, 4 executor workers, a tracer with a
+              flight recorder); warm-up captures buckets 1..32 of both
+              engine routes of every model (``compile_events``,
+              ``staging_events``, ``memory_reserved`` printed); 320
+              requests from 8 concurrent clients in two priority classes,
+              every row held against the CPU plain route; no capture, no
+              staging allocation and no wrapper call while serving;
+              ``openmetrics()`` ends ``# EOF``, ``telemetry()`` carries
+              ``stage_breakdown_us``; then ``FaultInjector(persistent_routes=
+              {"kernels"})``: served on the captured ``"compiled"`` route,
+              then, with that route failed too, on ``"reference"``, every
+              row bit-identical to the healthy run's; the bucket-call
+              latency per model at buckets 1 / 4 / 8 (graph replay and the
+              eager forward);
+10. trace   — torch.profiler over person bucket-8 calls (graph replays):
+              device time by kernel and the device's busy share (over the
+              profiled window, and over the same 5 calls unprofiled), and
+              the bucket-8 graph's replay time from CUDA events.
 
 Each phase prints one JSON line (the ``kernels`` phase lists every call it
 timed, and ``explicit`` the seven explicit cases); then the ``kernels``
@@ -110,6 +137,18 @@ DWCONV_EXPLICIT = (
     ((2, 12, 11, 32), (5, 5, 32), 20, ((2, 2), (1, 2, 2, 2), 5)),
     ((8, 48, 48, 8), (3, 3, 8), None, ((1, 1), (1, 1, 1, 1), -3)))
 PAGED_EXPLICIT = (((8, 4000), (4000, 4), 1), ((4, 256), (256, 256), 128))
+# the serving stack: three paper models behind build_paper_registry, kernel
+# calls each bucket's graph holds per model, clients and requests
+SERVING_LAUNCHES = {"sine": {"qmatmul": 3}, "speech": {"qmatmul": 2},
+                    "person": LAUNCHES_PER_FORWARD}
+SERVING_MAX_BATCH = 32
+SERVING_WORKERS = 4
+SERVING_CLIENTS = 8
+SERVING_REQUESTS = 40      # per client: 320 healthy requests
+SERVING_FAULT_REQUESTS = 12   # per model, kernel route failed
+SERVING_REFERENCE_REQUESTS = 4  # per model, both engine routes failed
+SERVING_POOL = 64
+SERVING_LATENCY_BUCKETS = (1, 4, 8)
 
 
 def emit(obj) -> None:
@@ -184,17 +223,29 @@ def host_ms(fn, reps: int = 20) -> float:
 # kernel signatures of the person plan
 # ---------------------------------------------------------------------------
 
+def eager_forward(cm, xs):
+    """One batched forward of ``cm``'s eager lowered function on ``xs``,
+    staged as a bucket's CUDA graph receives them (bucket-filled, in the
+    physical entry layout): the kernel calls the bucket's graph captured."""
+    from repro_torch.core.engine import bucket_for
+    (tid,) = cm.graph.inputs
+    x = torch.as_tensor(np.asarray(xs), device="cuda")
+    staged = torch.zeros((bucket_for(len(xs)),) + cm.exec_plan.entry_shape(tid),
+                         dtype=x.dtype, device="cuda")
+    staged[(slice(0, len(xs)),)
+           + tuple(slice(0, d) for d in cm.graph.tensor(tid).shape)] = x
+    return cm._batched_fn(staged)
+
+
 def record_calls(cm, xs_by_bucket):
-    """Run one forward per bucket through ``predict_q_many`` and record each
-    kernel call's signature (kind, shapes, bounds or dtype, lane mask or
-    page, stride). ``cm`` may also be any callable of one batch."""
+    """Run one eager batched forward per bucket (:func:`eager_forward`) and
+    record each kernel call's signature (kind, shapes, bounds or dtype, lane
+    mask or page, stride): the calls each bucket's CUDA graph holds."""
     calls = {b: [] for b in xs_by_bucket}
-    run = cm if callable(cm) else (
-        lambda xs: cm.predict_q_many(xs, max_batch=MAX_BATCH))
     with recording() as current:
         for b, xs in xs_by_bucket.items():
             current.clear()
-            run(xs)
+            eager_forward(cm, xs)
             calls[b] = list(current)
     return calls
 
@@ -516,13 +567,15 @@ def max_diff(got, want) -> float:
 
 
 def launch_counts() -> dict:
-    from repro_torch.kernels import ops as kops
-    from repro_torch.kernels import paged_matmul as pm_mod
-    from repro_torch.kernels import qdwconv as dw_mod
-    from repro_torch.kernels import qmatmul as mm_mod
-    return {"qmatmul": mm_mod.launches, "qdwconv": dw_mod.launches,
-            "paged_qmatmul": pm_mod.launches,
-            "fmatmul": mm_mod.fmatmul_launches, "probe": kops.probe_launches}
+    from repro_torch.kernels import launch_counts as counts
+    return counts()
+
+
+def graph_launches(cm) -> dict:
+    """bucket -> the kernel-wrapper calls its CUDA graph holds (counted
+    during the capture; a replay calls no wrapper)."""
+    return {e["bucket"]: e["launches"] for e in cm.compile_log
+            if e["kind"] == "bucket"}
 
 
 def reset_counts() -> None:
@@ -673,7 +726,9 @@ def phase_paging(models, fc256, float_speech):
                 + [cm.predict_q_many(xs[:b], max_batch=MAX_BATCH)
                    for b in PAGED_BUCKETS])
 
-    n_fwd = 1 + len(PAGED_BUCKETS)
+    # predict_q is one eager forward; a bucket's first call is two (the
+    # eager run before its capture, and the capture)
+    n_fwd = 1 + 2 * len(PAGED_BUCKETS)
     want_card, want_cpu, unpaged = {}, {}, {}
     for name, (g, xs) in models.items():
         paged = PAGED[name][1]
@@ -709,12 +764,19 @@ def phase_paging(models, fc256, float_speech):
     torch.cuda.synchronize()
     per_model["fc256"] = {k: v - before[k] for k, v in launch_counts().items()}
     before = launch_counts()
-    float_got = forwards(CompiledModel(sg, device="cuda"), sxs)
+    float_cm = CompiledModel(sg, device="cuda")
+    float_got = forwards(float_cm, sxs)
     torch.cuda.synchronize()
     per_model["speech_float"] = {k: v - before[k]
                                  for k, v in launch_counts().items()}
     launches = launch_counts()
     wall_s = time.perf_counter() - t0
+    for cm, xs in [(engines[n], xs) for n, (_, xs) in models.items()] + [
+            (float_cm, sxs)]:  # the buckets again: replays, no wrapper call
+        for b in PAGED_BUCKETS:
+            cm.predict_q_many(xs[:b], max_batch=MAX_BATCH)
+    torch.cuda.synchronize()
+    check(launch_counts() == launches, "a replay called a kernel wrapper")
 
     # -- checks ---------------------------------------------------------------
     check(launches["probe"] == 1, f"probe launches {launches['probe']}")
@@ -729,6 +791,10 @@ def phase_paging(models, fc256, float_speech):
         check((c["qmatmul"], c["qdwconv"]) == tuple(
             v * n_fwd for v in per_fwd_q[name]),
             f"{name}: unpaged launches {c}")
+        for b, gc in graph_launches(engines[name]).items():
+            check((gc["paged_qmatmul"], gc["qmatmul"], gc["qdwconv"])
+                  == (paged_per_fwd,) + per_fwd_q[name],
+                  f"{name} bucket {b}: kernel calls in its graph {gc}")
         card_d = max(max_diff(a, b) for a, b in zip(got[name], want_card[name]))
         check(card_d == 0, f"{name}: paged rows differ from the card's "
                            f"unpaged engine by {card_d}")
@@ -811,9 +877,221 @@ def phase_routes(cases):
             ms[route] = host_ms(lambda r=route: cm.predict_q_routed(
                 xs, route=r, max_batch=MAX_BATCH), reps=3)
         out[name] = {"routes": list(cm.routes()), "rows": int(xs.shape[0]),
+                     "captures": {"kernels": cm.compile_events, "compiled":
+                                  cm._fallback_compiled().compile_events},
                      "paged": {str(k): v for k, v in (paged or {}).items()},
                      "identical": True, "ms_per_call": ms}
     emit({"phase": "routes", "models": out})
+
+
+# ---------------------------------------------------------------------------
+# the serving stack: the third main path
+# ---------------------------------------------------------------------------
+
+def _serving_pools(models) -> dict:
+    """name -> SERVING_POOL seeded int8 rows of the model's input shape."""
+    rng = np.random.default_rng(SEED + 3)
+    return {name: rng.integers(-128, 128, (SERVING_POOL,) + tuple(
+        m.graph.tensor(m.graph.inputs[0]).shape)).astype(np.int8)
+        for name, m in models.items()}
+
+
+def _rows_equal(name, got, want) -> int:
+    """Max |got - want|; int8 logits must be equal, softmax rows (speech,
+    person) may differ by one LSB from the CPU plain route."""
+    d = int(np.abs(got.astype(np.int32) - want.astype(np.int32)).max(initial=0))
+    check(d <= (0 if name == "sine" else 1),
+          f"{name}: a served row differs from the CPU plain route by {d}")
+    return d
+
+
+def phase_serving():
+    """``build_paper_registry`` on the card at full width behind the real
+    clock, a thread pool of SERVING_WORKERS and a tracer with a flight
+    recorder; every bucket of every model captured at warm-up on both
+    engine routes; concurrent clients in two priority classes; then the
+    kernel route failed (served on the captured plain route) and the plain
+    route failed too (served by the reference interpreter)."""
+    import asyncio
+
+    from repro_torch.core.engine import CompiledModel, bucket_floor
+    from repro_torch.obs import FlightRecorder, Tracer
+    from repro_torch.serve.executor import ThreadPoolExecutorBackend
+    from repro_torch.serve.faults import FaultInjector
+    from repro_torch.serve.registry import ServingRegistry, build_paper_registry
+    from repro_torch.serve.resilience import (BreakerPolicy, ResilientExecutor,
+                                              RetryPolicy)
+    from repro_torch.serve.scheduler import ClassPolicy
+
+    names = tuple(SERVING_LAUNCHES)
+    classes = {"interactive": ClassPolicy(priority=1, max_delay_s=0.001),
+               "batch": ClassPolicy(priority=0, max_delay_s=0.004)}
+    top = bucket_floor(SERVING_MAX_BATCH)
+    want_buckets = tuple(1 << i for i in range(top.bit_length()))
+
+    # -- warm-up, counted: the captures are the only wrapper calls ----------
+    reset_counts()
+    t0 = time.perf_counter()
+    tracer = Tracer(flight=FlightRecorder(
+        path=os.path.join(ROOT, "build", "flightrec.json")))
+    reg = build_paper_registry(names, device="cuda",
+                               max_batch=SERVING_MAX_BATCH,
+                               executor_workers=SERVING_WORKERS,
+                               tracer=tracer, classes=classes, max_queue=1024)
+    models = {n: reg._entry(n).model for n in names}
+    for m in models.values():
+        m.warmup_routes(SERVING_MAX_BATCH)  # the compiled fallback's buckets
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    warm_counts = launch_counts()
+    captures, staging = {}, {}
+    for name, m in models.items():
+        fb = m._fallback_compiled()
+        for route, eng in (("kernels", m), ("compiled", fb)):
+            check(eng.bucket_sizes() == want_buckets
+                  and eng.compile_events == len(want_buckets),
+                  f"{name} {route}: buckets {eng.bucket_sizes()}, "
+                  f"{eng.compile_events} captures")
+            for b, c in graph_launches(eng).items():
+                want = SERVING_LAUNCHES[name] if route == "kernels" else {}
+                check({k: v for k, v in c.items() if v} == want,
+                      f"{name} {route} bucket {b}: kernel calls {c}")
+        captures[name] = {"kernels": m.compile_events,
+                          "compiled": fb.compile_events}
+        staging[name] = {"kernels": m.staging_events,
+                         "compiled": fb.staging_events}
+    for k in ("qmatmul", "qdwconv"):
+        check(warm_counts[k] > 0, f"serving warm-up launched no {k}")
+    reserved = torch.cuda.memory_reserved()
+
+    pools = _serving_pools(models)
+    want = {n: CompiledModel(m.graph, use_kernels=False, device="cpu")
+            .predict_q_many(pools[n], max_batch=SERVING_MAX_BATCH)
+            for n, m in models.items()}
+
+    # -- healthy serving: concurrent clients, real clock ----------------------
+    async def client(k, registry, n_req, picks):
+        out = []
+        for i in range(n_req):
+            name = names[(k + i) % len(names)]
+            j = picks(name, k, i)
+            y = await registry.infer(name, pools[name][j],
+                                     cls=("interactive", "batch")[(k + i) % 2])
+            out.append((name, j, np.asarray(y)))
+            if i % 4 == 3:
+                await asyncio.sleep(0.0005)
+        return out
+
+    async def healthy():
+        async with reg:
+            t = time.perf_counter()
+            res = await asyncio.gather(*(client(
+                k, reg, SERVING_REQUESTS,
+                lambda name, k, i: (k * SERVING_REQUESTS + i) % SERVING_POOL)
+                for k in range(SERVING_CLIENTS)))
+            wall = time.perf_counter() - t
+            return ([r for rs in res for r in rs], wall, reg.openmetrics(),
+                    reg.telemetry(), reg.snapshot())
+
+    served, wall, text, tel, snap = asyncio.run(healthy())
+    torch.cuda.synchronize()
+    check(len(served) == SERVING_CLIENTS * SERVING_REQUESTS, "rows missing")
+    diffs = {n: 0 for n in names}
+    healthy_rows = {}
+    for name, j, y in served:
+        diffs[name] = max(diffs[name], _rows_equal(name, y, want[name][j]))
+        healthy_rows[(name, j)] = y
+    check(launch_counts() == warm_counts,
+          "a kernel wrapper ran while serving (replays call none)")
+    for name, m in models.items():
+        check({"kernels": m.compile_events,
+               "compiled": m._fallback_compiled().compile_events}
+              == captures[name], f"{name}: a bucket was captured again")
+        check(m.staging_events == staging[name]["kernels"],
+              f"{name}: the staging pool allocated while serving")
+    check(text.rstrip().endswith("# EOF"), "openmetrics() must end # EOF")
+    check("stage_breakdown_us" in tel, "telemetry() lacks stage_breakdown_us")
+    for name in names:
+        check(snap[name]["completed"] == sum(1 for r in served if r[0] == name)
+              and snap[name]["failed"] == 0, f"{name}: {snap[name]}")
+
+    # -- the kernel route failed, then the plain route too --------------------
+    inj = FaultInjector(persistent_routes={"kernels"})
+    rex = ResilientExecutor(inj.wrap(ThreadPoolExecutorBackend(
+        max_workers=SERVING_WORKERS)), retry=RetryPolicy(max_attempts=2,
+                                                         jitter=0.0),
+        breaker=BreakerPolicy(failure_threshold=2, recovery_s=3600.0))
+    reg2 = ServingRegistry(max_batch=SERVING_MAX_BATCH, executor=rex,
+                           classes=classes, tracer=Tracer(), max_queue=1024)
+    for name, m in models.items():
+        reg2.register(name, m)
+    seen = {n: sorted(j for m, j in healthy_rows if m == n) for n in names}
+
+    def picks(name, k, i, n):  # rows the healthy run served
+        return seen[name][(k * n + i) % len(seen[name])]
+
+    async def degraded():
+        async with reg2:
+            out = {}
+            for stage, n_req in (("compiled", SERVING_FAULT_REQUESTS),
+                                 ("reference", SERVING_REFERENCE_REQUESTS)):
+                if stage == "reference":
+                    inj.break_route("compiled")
+                res = await asyncio.gather(*(client(
+                    k, reg2, n_req,
+                    lambda name, k, i, n=n_req: picks(name, k, i, n))
+                    for k in range(len(names))))
+                out[stage] = ([r for rs in res for r in rs],
+                              {n: dict(s["degraded_by_route"])
+                               for n, s in reg2.snapshot().items()})
+            return out
+
+    deg = asyncio.run(degraded())
+    torch.cuda.synchronize()
+    degraded_report = {}
+    for stage, (rows, by_route) in deg.items():
+        for name, j, y in rows:
+            check(np.array_equal(y, healthy_rows[(name, j)]),
+                  f"{name}: a row served on {stage} differs from the "
+                  f"healthy run's")
+        check(all(by_route[n].get(stage, 0) > 0 for n in names),
+              f"nothing was served on {stage}: {by_route}")
+        degraded_report[stage] = {"rows": len(rows),
+                                  "bit_identical_to_healthy": True,
+                                  "degraded_by_route": by_route}
+    check(launch_counts() == warm_counts,
+          "a kernel wrapper ran while serving degraded")
+    for name, m in models.items():
+        fb = m._fallback_compiled()
+        check(fb.compile_events == captures[name]["compiled"]
+              and fb.staging_events == staging[name]["compiled"],
+              f"{name}: the compiled route recaptured or allocated")
+
+    # -- bucket-call latency (host clock), graph replay and eager forward -----
+    latency = {}
+    for name, m in models.items():
+        latency[name] = {}
+        for b in SERVING_LATENCY_BUCKETS:
+            xs = pools[name][:b]
+            replay = host_ms(lambda: m.predict_q_many(
+                xs, max_batch=SERVING_MAX_BATCH), reps=20)
+            eager = host_ms(lambda: [o[:b].cpu() for o in
+                                     eager_forward(m, xs)], reps=20)
+            latency[name][str(b)] = {"replay_ms": replay, "eager_ms": eager}
+    emit({"phase": "serving", "models": list(names),
+          "max_batch": SERVING_MAX_BATCH, "workers": SERVING_WORKERS,
+          "buckets": list(want_buckets), "warmup_s": round(warm_s, 3),
+          "compile_events": captures, "staging_events": staging,
+          "warmup_launches": {k: v for k, v in warm_counts.items() if v},
+          "memory_reserved_bytes": reserved,
+          "requests": len(served), "clients": SERVING_CLIENTS,
+          "serve_wall_s": round(wall, 4),
+          "rows_per_s": round(len(served) / wall, 1),
+          "max_abs_diff_vs_cpu_plain": diffs,
+          "stage_breakdown_us": tel["stage_breakdown_us"],
+          "flight": tel.get("flight"), "degraded": degraded_report,
+          "ms_per_bucket_call": latency})
+    return models
 
 
 # ---------------------------------------------------------------------------
@@ -1024,6 +1302,9 @@ def main() -> int:
     phase_layers(cm, qg, xq[0])
 
     # -- the first main path, counted ----------------------------------------
+    # predict_q runs the eager per-call forward; the first predict_q_many of
+    # a bucket runs its batched forward once eagerly and captures it as a
+    # CUDA graph (two forwards' kernel calls), every later call replays it
     want_rows = plain_cpu.predict_q_many(xq, max_batch=MAX_BATCH)
     reset_counts()
     with counting_border_pads() as border:
@@ -1033,12 +1314,25 @@ def main() -> int:
     torch.cuda.synchronize()
     launches = {k: v for k, v in launch_counts().items()
                 if k in LAUNCHES_PER_FORWARD}
-    n_forwards = 1 + len(SERVE_BATCHES)
+    captured = graph_launches(cm)
+    check(sorted(captured) == sorted({bucket_for(b) for b in SERVE_BATCHES}),
+          f"captured buckets {sorted(captured)}")
+    for b, c in captured.items():
+        check({k: c[k] for k in LAUNCHES_PER_FORWARD} == LAUNCHES_PER_FORWARD
+              and sum(c.values()) == sum(LAUNCHES_PER_FORWARD.values()),
+              f"bucket {b}: kernel calls in its graph {c}")
+    n_forwards = 1 + 2 * len(captured)
     check(launches == {k: v * n_forwards
                        for k, v in LAUNCHES_PER_FORWARD.items()},
           f"launches {launches} for {n_forwards} forwards")
     check(border["pads"] == 0, f"{border['pads']} border pads before the "
                                f"depthwise layers of {n_forwards} forwards")
+    replayed = {b: cm.predict_q_many(xq[:b], max_batch=MAX_BATCH)
+                for b in SERVE_BATCHES}
+    torch.cuda.synchronize()
+    check({k: v for k, v in launch_counts().items()
+           if k in LAUNCHES_PER_FORWARD} == launches,
+          "a replay called a kernel wrapper")
 
     def close(got, want):
         d = np.abs(got.astype(np.int32) - want.astype(np.int32))
@@ -1050,10 +1344,13 @@ def main() -> int:
         check(out.shape == (b, 1, 2), f"batch {b}: shape {out.shape}")
         check(close(out, want_rows[:b]) <= 1,
               f"batch {b}: rows differ from the CPU plain route")
+        check(np.array_equal(replayed[b], out),
+              f"batch {b}: the replay differs from the captured call")
     serve_ms = {str(bucket_for(b)): host_ms(
         lambda b=b: cm.predict_q_many(xq[:b], max_batch=MAX_BATCH))
         for b in SERVE_BATCHES}
     emit({"phase": "serve", "launches": launches, "forwards": n_forwards,
+          "graph_launches": {str(b): c for b, c in captured.items()},
           "border_pads_before_depthwise": border["pads"],
           "softmax_max_abs_diff": max(close(single, want_rows[0]),
                                       *(close(o, want_rows[:b])
@@ -1068,10 +1365,21 @@ def main() -> int:
     phase_routes([("person", qg, xq[:3], None),
                   ("speech", speech_g, speech_xs[:3], PAGED["speech"][1])])
 
-    # -- device trace over bucket-8 forwards --------------------------------
+    # -- the third main path: the serving stack, counted ---------------------
+    phase_serving()
+
+    # -- device trace over bucket-8 calls (graph replays) ---------------------
     from torch.profiler import ProfilerActivity, profile
     cm.predict_q_many(xq, max_batch=MAX_BATCH)
     torch.cuda.synchronize()
+    exe = cm.compile_batched(8)
+    with torch.cuda.stream(exe.stream):  # the model's replay stream
+        replay_ms = cuda_ms(exe.graph.replay, reps=5, inner=5)
+    t0 = time.perf_counter()  # the same 5 calls without the profiler
+    for _ in range(5):
+        cm.predict_q_many(xq, max_batch=MAX_BATCH)
+    torch.cuda.synchronize()
+    plain_window_ms = (time.perf_counter() - t0) * 1e3
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(5):
@@ -1091,6 +1399,10 @@ def main() -> int:
     emit({"phase": "trace", "forwards": 5, "bucket": 8,
           "window_ms": round(window_ms, 3), "device_ms": round(device_ms, 3),
           "busy_share": round(device_ms / window_ms, 4) if window_ms else None,
+          "graph_replay_ms": replay_ms,
+          "busy_share_replays": round(5 * replay_ms / window_ms, 4),
+          "window_ms_unprofiled": round(plain_window_ms, 3),
+          "busy_share_unprofiled": round(device_ms / plain_window_ms, 4),
           "top_device_ms": [[k[:80], round(v, 4)] for k, v in top],
           "script_s": round(time.perf_counter() - t_start, 3)})
 

@@ -1,5 +1,5 @@
 """Compiled engine — the port of ``repro.core.engine`` (the MicroFlow
-counterpart, Sec. 3.3), running eagerly on a torch device.
+counterpart, Sec. 3.3), running on a torch device.
 
 Everything resolved before the first inference lives in ONE object, the
 :class:`ExecutionPlan`: graph + folded Eq. (4)/(7)/(10) constants +
@@ -11,11 +11,18 @@ layout cannot drift between them. With the layout plan, kernel-routed ops exchan
 in lane-padded layout: padding at graph entry, slicing at graph outputs and
 non-kernel boundaries.
 
-Batched serving: ``predict_q`` accepts inputs with one extra leading batch
-dimension. Each batch is zero-filled up to its power-of-two bucket — fused
-with the planned entry lane pad into one staged device buffer — so rows are
-bit-identical to batch-1 calls. ``predict_q_many`` chunks large batches on
-bucket boundaries.
+Bucket executables: ``predict_q`` accepts inputs with one extra leading
+batch dimension. Each batch runs in its power-of-two bucket, whose
+executable (:meth:`CompiledModel.compile_batched`, the counterpart of the
+reference's AOT bucket executables) is built once: on CUDA the batched
+forward captured as one CUDA graph over static device buffers in the
+staged entry layout (``entry_shape``), so a bucket call is one graph
+replay between two copies; on the CPU the eager batched function. Rows are
+staged into pooled host buffers (pinned on CUDA) that are born in the
+physical entry layout and zero outside the rows in use, so the bucket
+zero-fill and the entry lane pad cost nothing; rows are bit-identical to
+batch-1 calls. ``predict_q_many`` chunks large batches on bucket
+boundaries; ``staged_infer`` is the serving flush's zero-allocation path.
 
 Degradation chain: :meth:`CompiledModel.routes` lists the routes a model
 can serve, primary first (``"kernels"`` → ``"compiled"`` → ``"reference"``;
@@ -25,6 +32,7 @@ bit-identical rows.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import threading
 from typing import Optional
@@ -32,6 +40,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.obs.trace import engine_event, engine_span
 from . import graph as G
 from . import registry as R
 from .device import resolve_device
@@ -169,6 +178,68 @@ def _single(outs):
     return outs if len(outs) > 1 else outs[0]
 
 
+_DTYPES = {"int8": torch.int8, "int32": torch.int32,
+           "float32": torch.float32}
+
+
+class _EagerBucket:
+    """A bucket's executable on the CPU: the eager batched function."""
+
+    def __init__(self, fn):
+        self._fn = fn
+
+    def run(self, bufs, rows: int) -> tuple:
+        return tuple(o[:rows].numpy().copy() for o in self._fn(*bufs))
+
+
+class _GraphBucket:
+    """A bucket's executable on CUDA: the batched forward captured as one
+    CUDA graph over static device inputs of the staged entry layout, with
+    static (contiguous) outputs and pinned host buffers for them.
+
+    The forward runs once eagerly on the capture stream first (kernel
+    libraries loaded, library handles made), then is captured on that
+    private stream with ``capture_error_mode="thread_local"``, so serving
+    threads that launch work meanwhile do not break the capture. The
+    static buffers are shared by every call of the bucket, so a call holds
+    ``lock`` from the copy in until its rows are back on the host.
+    ``launches`` counts the kernel-wrapper calls the graph holds (made
+    during the capture; a replay calls no wrapper)."""
+
+    def __init__(self, fn, shapes, dtypes, device, pool, stream):
+        from repro_torch.kernels import launch_counts
+        self.lock = threading.Lock()
+        self.stream = stream
+        self.inputs = tuple(torch.zeros(s, dtype=d, device=device)
+                            for s, d in zip(shapes, dtypes))
+        capture = torch.cuda.Stream(device)
+        capture.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(capture):
+            fn(*self.inputs)
+        torch.cuda.current_stream(device).wait_stream(capture)
+        self.graph = torch.cuda.CUDAGraph()
+        before = launch_counts()
+        with torch.cuda.graph(self.graph, pool=pool, stream=capture,
+                              capture_error_mode="thread_local"):
+            self.outputs = tuple(o.contiguous() for o in fn(*self.inputs))
+        self.launches = {k: v - before[k]
+                         for k, v in launch_counts().items()}
+        self.host = tuple(torch.empty(o.shape, dtype=o.dtype, pin_memory=True)
+                          for o in self.outputs)
+        self.done = torch.cuda.Event()
+
+    def run(self, bufs, rows: int) -> tuple:
+        with self.lock, torch.cuda.stream(self.stream):
+            for dst, src in zip(self.inputs, bufs):
+                dst.copy_(src, non_blocking=True)
+            self.graph.replay()
+            for h, o in zip(self.host, self.outputs):
+                h[:rows].copy_(o[:rows], non_blocking=True)
+            self.done.record(self.stream)
+            self.done.synchronize()
+            return tuple(h[:rows].numpy().copy() for h in self.host)
+
+
 class CompiledModel:
     """The user-facing ``predict()`` of a quantized graph on a torch device.
 
@@ -186,6 +257,16 @@ class CompiledModel:
     the CPU.
 
     Results are numpy arrays in the graph's dtypes.
+
+    Thread-safety: the bucket executables fill under ``_compile_lock``
+    with a double-checked lookup, so concurrent ``predict_q_many`` calls
+    on a cold bucket build it exactly once (warm lookups take no lock);
+    a bucket's call holds that bucket's lock. The staging pool checks out
+    and returns buffer sets under ``_staging_lock``. Every fill is recorded
+    twice: the monotone ``compile_events`` counter (after warm-up it must
+    not move on the serving path) and the typed ``compile_log``
+    (``{"kind": "bucket", "cache": None, "bucket": b}``, plus the
+    kernel-wrapper calls the graph holds, ``"launches"``, on CUDA).
     """
 
     def __init__(self, g: G.Graph, use_kernels: bool = True,
@@ -198,6 +279,28 @@ class CompiledModel:
         self._fallback = None   # use_kernels=False sibling ("compiled")
         self._reference = None  # Interpreter ("reference")
         self._lock = threading.Lock()  # lazy routes; the arena is stateful
+        self._compile_lock = threading.Lock()  # guards bucket fills
+        self._buckets: dict = {}  # bucket size -> executable
+        # one graph memory pool and one replay stream for all of this
+        # model's buckets (made at the first capture): replays on one
+        # stream never overlap, so the buckets can share scratch memory
+        self._pool = None
+        self._stream = None
+        # Pooled host staging buffers (pinned on CUDA) for the batched path:
+        # bucket -> [tuple of per-input tensors], each born in the bucket's
+        # physical entry layout, ``(bucket,) + entry_shape(tid)``, and kept
+        # zero outside the rows in use, so assembling a flush is a row
+        # copy, never an allocation or a pad.
+        self._staging: dict = {}
+        self._staging_lock = threading.Lock()
+        self._staging_cap = 4   # buffer sets kept per bucket
+        # Monotone count of staging-buffer allocations: after warm-up it
+        # must not move on the serving hot path.
+        self.staging_events = 0
+        # Monotone count of bucket-executable builds (CUDA-graph captures
+        # on the card): after warm-up it must not move either.
+        self.compile_events = 0
+        self.compile_log: list = []
 
     @property
     def graph(self) -> G.Graph:
@@ -222,6 +325,146 @@ class CompiledModel:
     def memory_report(self):
         return memory_report(self.graph)
 
+    # -- bucket executables ------------------------------------------------
+    def _note_compile(self, kind: str, **extra) -> None:
+        """Record one executable build (caller holds ``_compile_lock``) and
+        make it visible to an active trace scope: a traced request paying a
+        build is what the serving warm-up promises never happens."""
+        self.compile_events += 1
+        self.compile_log.append({"kind": kind, "cache": None, **extra})
+        engine_event("compile", kind=kind, **extra)
+
+    def compile_batched(self, batch: int):
+        """The executable of ``batch``'s bucket, built once and cached,
+        lowered from the shared :class:`ExecutionPlan` (layout plan
+        included) over inputs in the staged entry layout. On CUDA it is one
+        CUDA-graph capture; on the CPU the eager batched function."""
+        bucket = bucket_for(batch)
+        exe = self._buckets.get(bucket)
+        if exe is not None:
+            return exe
+        with self._compile_lock:
+            exe = self._buckets.get(bucket)
+            if exe is not None:
+                return exe  # built while we waited
+            if self.device.type == "cuda":
+                if self._pool is None:
+                    self._pool = torch.cuda.graph_pool_handle()
+                    self._stream = torch.cuda.Stream(self.device)
+                g = self.graph
+                exe = _GraphBucket(
+                    self._batched_fn,
+                    [(bucket,) + self.exec_plan.entry_shape(t)
+                     for t in g.inputs],
+                    [_DTYPES[g.tensor(t).dtype] for t in g.inputs],
+                    self.device, self._pool, self._stream)
+                self._buckets[bucket] = exe
+                self._note_compile("bucket", bucket=bucket,
+                                   launches=exe.launches)
+            else:
+                exe = self._buckets[bucket] = _EagerBucket(self._batched_fn)
+                self._note_compile("bucket", bucket=bucket)
+        return exe
+
+    def bucket_sizes(self) -> tuple:
+        """Batch buckets with a built executable, sorted."""
+        with self._compile_lock:
+            return tuple(sorted(self._buckets))
+
+    def warmup_batched(self, max_batch: int) -> "CompiledModel":
+        """Ahead-of-serving warm-up: build every power-of-two bucket up to
+        ``bucket_for(max_batch)`` (the reference's rule; the batcher passes
+        ``bucket_floor(max_batch)``) and fill each bucket's staging pool to
+        its cap. After this no batch of at most ``max_batch`` rows builds
+        anything at request time, and up to ``_staging_cap`` flushes of one
+        bucket in flight at once (an off-loop executor's workers) allocate
+        nothing."""
+        top = bucket_for(max_batch)
+        b = 1
+        while b <= top:
+            self.compile_batched(b)
+            b *= 2
+        self._warm_staging(top)
+        return self
+
+    def _warm_staging(self, top: int) -> None:
+        b = 1
+        while b <= top:
+            with self._staging_lock:
+                pool = self._staging.setdefault(b, [])
+                while len(pool) < self._staging_cap:
+                    pool.append(self._new_staging(b))
+            b *= 2
+
+    # -- pooled staging (serving fast path) --------------------------------
+    def _new_staging(self, bucket: int) -> tuple:
+        self.staging_events += 1
+        pin = self.device.type == "cuda"
+        return tuple(torch.zeros((bucket,) + self.exec_plan.entry_shape(tid),
+                                 dtype=_DTYPES[self.graph.tensor(tid).dtype],
+                                 pin_memory=pin)
+                     for tid in self.graph.inputs)
+
+    def acquire_staging(self, bucket: int) -> tuple:
+        """Check out one zero-filled staging buffer set (one host tensor per
+        graph input, ``(bucket,) + entry_shape``, pinned on CUDA).
+        Thread-safe; a cold checkout allocates (counted in
+        ``staging_events``), a warm one reuses — ``warmup_batched``
+        fills each bucket's pool so serving never allocates."""
+        with self._staging_lock:
+            pool = self._staging.get(bucket)
+            if pool:
+                return pool.pop()
+        return self._new_staging(bucket)
+
+    def release_staging(self, bucket: int, bufs: tuple, rows: int) -> None:
+        """Return a staging buffer set, re-zeroing the ``rows`` rows that
+        were written, so the pool invariant (zero outside the rows in use)
+        holds for the next checkout. The pool keeps at most
+        ``_staging_cap`` sets per bucket; extras are dropped."""
+        for b in bufs:
+            b[:rows] = 0
+        with self._staging_lock:
+            pool = self._staging.setdefault(bucket, [])
+            if len(pool) < self._staging_cap:
+                pool.append(bufs)
+
+    def predict_q_staged(self, bufs: tuple, rows: int):
+        """Run the bucket executable on prestaged physical-layout buffers:
+        they already ARE its entry contract (bucket zero-fill and lane pad
+        included), so this is the copy in, the replay and the first
+        ``rows`` rows copied out."""
+        bucket = int(bufs[0].shape[0])
+        exe = self.compile_batched(bucket)
+        # the device span covers the replay AND the host sync — what a
+        # request actually waits for
+        with engine_span("device", bucket=bucket, rows=rows):
+            outs = exe.run(bufs, rows)
+        return _single(outs)
+
+    def staged_infer(self, rows: list):
+        """Serving fast-path flush: write single-sample ``rows`` of a
+        single-input graph straight into a pooled staging buffer and run
+        the bucket executable on it — the zero-allocation twin of
+        ``predict_q_many(np.stack(rows))`` for flushes that fit one bucket,
+        with bit-identical outputs. A row that cannot be staged raises, and
+        the buffer goes back to the pool clean."""
+        (tid,) = self.graph.inputs  # serving contract: single-input graph
+        t = self.graph.tensor(tid)
+        n = len(rows)
+        if n == 0:
+            return self._empty_rows()
+        bucket = bucket_for(n)
+        bufs = self.acquire_staging(bucket)
+        try:
+            dst = bufs[0].numpy()
+            window = tuple(slice(0, d) for d in t.shape)  # logical region
+            for i, row in enumerate(rows):
+                dst[(i,) + window] = np.asarray(row, t.dtype).reshape(t.shape)
+            return self.predict_q_staged(bufs, n)
+        finally:
+            self.release_staging(bucket, bufs, n)
+
     # -- inference ---------------------------------------------------------
     def _is_batched(self, first_input) -> bool:
         t0 = self.graph.tensor(self.graph.inputs[0])
@@ -238,22 +481,29 @@ class CompiledModel:
                                device=self.device)
 
     def _predict_q_batched(self, inputs):
-        batch = int(inputs[0].shape[0])
-        bucket = bucket_for(batch)
-        args = []
+        arrs = []
         for tid, arr in zip(self.graph.inputs, inputs):
             t = self.graph.tensor(tid)
-            a = self._to_device(arr, t, (-1,) + t.shape)
+            arrs.append(np.asarray(arr, t.dtype).reshape((-1,) + t.shape))
+        batch = arrs[0].shape[0]
+        for a in arrs:
             if a.shape[0] != batch:
                 raise ValueError(f"all inputs must share the batch dim: "
                                  f"{a.shape[0]} != {batch}")
-            # one staged buffer: bucket zero-fill + planned entry lane pad
-            staged = torch.zeros((bucket,) + self.exec_plan.entry_shape(tid),
-                                 dtype=a.dtype, device=self.device)
-            staged[(slice(0, batch),) + tuple(slice(0, d) for d in t.shape)] = a
-            args.append(staged)
-        outs = self._batched_fn(*args)
-        return _single(tuple(o[:batch].cpu().numpy() for o in outs))
+        bucket = bucket_for(batch)
+        bufs = self.acquire_staging(bucket)
+        try:
+            # the rows go into buffers that are born bucket-filled and
+            # lane-padded; the span marks a flush that pads its bucket
+            with (engine_span("pad_stage", batch=batch) if batch < bucket
+                  else contextlib.nullcontext()):
+                for tid, a, buf in zip(self.graph.inputs, arrs, bufs):
+                    shape = self.graph.tensor(tid).shape
+                    buf.numpy()[(slice(0, batch),)
+                                + tuple(slice(0, d) for d in shape)] = a
+            return self.predict_q_staged(bufs, batch)
+        finally:
+            self.release_staging(bucket, bufs, batch)
 
     def predict_q(self, *inputs):
         """Graph-dtype in / graph-dtype out. Inputs may carry one extra
@@ -349,20 +599,14 @@ class CompiledModel:
         raise ValueError(f"unknown route {route!r}; available: {names}")
 
     def warmup_routes(self, max_batch: int) -> "CompiledModel":
-        """Warm every degradation route before serving: a zero-filled batch
-        at each bucket up to ``max_batch``'s through the primary route and
-        the compiled fallback (building kernel libraries, the fallback's
-        device constants and the card's library handles), and the reference
-        interpreter's arena, so a degraded request pays no set-up."""
-        top = bucket_for(max_batch)
-        for route in self.routes()[:-1]:
-            b = 1
-            while b <= top:
-                self.predict_q_routed(*(
-                    np.zeros((b,) + tuple(self.graph.tensor(t).shape),
-                             np.dtype(self.graph.tensor(t).dtype))
-                    for t in self.graph.inputs), route=route)
-                b *= 2
+        """Warm every degradation route before serving: the primary bucket
+        executables (``warmup_batched``), the compiled fallback's buckets
+        (when the primary is the kernel route; on the card they are
+        captured too), and the reference interpreter's arena — so a breaker
+        trip degrades to a route that is already built."""
+        self.warmup_batched(max_batch)
+        if self.use_kernels:
+            self._fallback_compiled().warmup_batched(max_batch)
         self._reference_interp()
         return self
 

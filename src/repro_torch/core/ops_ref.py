@@ -41,8 +41,17 @@ def round_up(x: int, m: int) -> int:
 
 def _as(v, like: torch.Tensor, dtype=None) -> torch.Tensor:
     """A constant (numpy array, scalar or tensor) as a tensor on ``like``'s
-    device — a no-op for a tensor that is already there."""
-    return torch.as_tensor(v, dtype=dtype, device=like.device)
+    device — a no-op for a tensor that is already there. A one-element host
+    constant (the activation qparams of pools, softmax and activations) is
+    filled in on the device, not copied from the host: a host-to-device
+    copy cannot be captured in a CUDA graph, a fill can."""
+    if torch.is_tensor(v):
+        return torch.as_tensor(v, dtype=dtype, device=like.device)
+    host = torch.as_tensor(v, dtype=dtype)  # the value and dtype, on the host
+    if host.numel() != 1:
+        return host.to(like.device)  # per-channel: the reference forms only
+    return torch.empty(host.shape, dtype=host.dtype,
+                       device=like.device).fill_(host.reshape(()))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,7 +68,8 @@ class FoldedConsts:
     z_x       : input zero point  (SAME border fill)
 
     Fields are numpy arrays as ``preprocess.fold_weighted_op`` makes them,
-    or tensors on a device after :meth:`to`.
+    or, after :meth:`to`, tensors on a device (:data:`HOST_FIELDS`
+    excepted).
     """
 
     bias_term: object
@@ -71,12 +81,19 @@ class FoldedConsts:
     s_y: object
     z_x: object
 
+    #: Per-tensor scalars that are read on the host (clamp bounds, the
+    #: SAME border's fill value): :meth:`to` leaves them where they are, so
+    #: no forward reads a device scalar back (a sync, which a CUDA graph
+    #: capture refuses).
+    HOST_FIELDS = ("z_y", "s_y", "z_x")
+
     def to(self, device) -> "FoldedConsts":
-        """The same constants as tensors on ``device`` (done once, when an
-        engine is built)."""
-        return FoldedConsts(*(torch.as_tensor(getattr(self, f.name),
-                                              device=device)
-                              for f in dataclasses.fields(self)))
+        """The per-channel constants as tensors on ``device`` (done once,
+        when an engine is built); :data:`HOST_FIELDS` stay on the host."""
+        return FoldedConsts(*(
+            getattr(self, f.name) if f.name in self.HOST_FIELDS
+            else torch.as_tensor(getattr(self, f.name), device=device)
+            for f in dataclasses.fields(self)))
 
 
 def _saturate_i8(y: torch.Tensor) -> torch.Tensor:
@@ -85,13 +102,18 @@ def _saturate_i8(y: torch.Tensor) -> torch.Tensor:
 
 def _fused_bounds(fused: str, z_y, s_y, like: torch.Tensor):
     """Quantized clamp bounds for fused activations (Eqs. (15), (17)),
-    computed in float32 arithmetic as the reference's plain route does."""
-    lo = torch.tensor(float("-inf"), device=like.device)
-    hi = torch.tensor(float("inf"), device=like.device)
+    computed in float32 arithmetic as the reference's plain route does. The
+    bounds are made on ``like``'s device (``torch.full``, no host-to-device
+    copy), so the op can be captured in a CUDA graph."""
+    lo = torch.full((), float("-inf"), dtype=torch.float32, device=like.device)
+    hi = torch.full((), float("inf"), dtype=torch.float32, device=like.device)
     if fused in ("RELU", "RELU6"):
         lo = _as(z_y, like).to(torch.float32)
     if fused == "RELU6":
-        hi = lo + 6.0 / _as(s_y, like, torch.float32)
+        # a tensor divided by a tensor: ``6.0 / t`` is ``t.reciprocal() *
+        # 6.0`` in torch, two roundings where the reference has one
+        s = _as(s_y, like, torch.float32)
+        hi = lo + torch.full_like(s, 6.0) / s
     elif fused not in ("NONE", "RELU"):
         raise ValueError(fused)
     return lo, hi

@@ -176,7 +176,13 @@ def test_paged_engine_on_card_equals_cpu_plain_route(gen, name, paged):
     cm = CompiledModel(qg, device="cuda", paged=paged)
     before = pm.launches
     got = cm.predict_q_many(xs, max_batch=4)
-    assert pm.launches == before + 2 * len(paged)  # buckets 4 and 1
+    # buckets 4 and 1, each run once eagerly and captured as a CUDA graph
+    assert pm.launches == before + 2 * 2 * len(paged)
+    assert all(e["launches"]["paged_qmatmul"] == len(paged)
+               for e in cm.compile_log)
+    before = pm.launches
+    np.testing.assert_array_equal(cm.predict_q_many(xs, max_batch=4), got)
+    assert pm.launches == before  # replays call no wrapper
     want = CompiledModel(qg, use_kernels=False, device="cpu",
                          paged=paged).predict_q_many(xs, max_batch=4)
     assert np.abs(got.astype(int) - want.astype(int)).max() <= 1  # softmax
@@ -184,3 +190,68 @@ def test_paged_engine_on_card_equals_cpu_plain_route(gen, name, paged):
                                   .predict_q_many(xs, max_batch=4))
     for route in cm.routes():
         np.testing.assert_array_equal(cm.predict_q_routed(xs, route=route), got)
+
+
+def _paper_engine(name, use_kernels=True):
+    from repro_torch.configs.paper_models import PAPER_MODELS
+    from repro_torch.core.engine import CompiledModel
+    from repro_torch.core.quantize import quantize_graph
+    shape = {"sine": (1, 1), "speech": (1, 49, 40, 1),
+             "person": (1, 96, 96, 1)}[name]
+    rng = np.random.default_rng(2)
+    qg = quantize_graph(PAPER_MODELS[name](), [rng.normal(0, 1, shape)
+                                               .astype("f")], device="cuda")
+    xs = rng.integers(-128, 128, (8,) + shape).astype(np.int8)
+    return CompiledModel(qg, use_kernels=use_kernels, device="cuda"), xs
+
+
+@pytest.mark.parametrize("use_kernels", [True, False],
+                         ids=["kernels", "compiled"])
+@pytest.mark.parametrize("name", ["sine", "speech", "person"])
+def test_bucket_graph_replays_equal_eager_rows(gen, name, use_kernels):
+    """Every bucket up to 8, captured as a CUDA graph and replayed, gives
+    the rows of the eager batched forward on the same staged input, on the
+    kernel route and on the plain route; the graph holds exactly the
+    kernel-wrapper calls of one eager forward."""
+    import torch
+    from repro_torch.kernels import launch_counts
+    cm, xs = _paper_engine(name, use_kernels)
+    (tid,) = cm.graph.inputs
+    shape = cm.graph.tensor(tid).shape
+    for b in (1, 2, 4, 8):
+        for rows in sorted({b, max(1, b - 1)}):
+            got = cm.predict_q_many(xs[:rows])
+            staged = torch.zeros((b,) + cm.exec_plan.entry_shape(tid),
+                                 dtype=torch.int8, device="cuda")
+            staged[(slice(0, rows),) + tuple(slice(0, d) for d in shape)] = \
+                torch.as_tensor(xs[:rows], device="cuda")
+            before = launch_counts()
+            eager = cm._batched_fn(staged)[0][:rows].cpu().numpy()
+            calls = {k: v - before[k] for k, v in launch_counts().items()}
+            np.testing.assert_array_equal(got, eager)
+        assert [e["launches"] for e in cm.compile_log
+                if e["bucket"] == b] == [calls]
+    assert cm.bucket_sizes() == (1, 2, 4, 8) and cm.compile_events == 4
+
+
+def test_no_recapture_or_wrapper_call_after_warmup(gen):
+    """After ``warmup_routes(8)`` no batch of 0..11 rows on either engine
+    route, and no staged flush of 1..8 rows, captures a graph, allocates a
+    staging buffer or calls a kernel wrapper."""
+    from repro_torch.kernels import launch_counts
+    cm, xs = _paper_engine("person")
+    xs = np.concatenate([xs, xs[:3]])
+    cm.warmup_routes(8)
+    fb = cm._fallback_compiled()
+    state = (cm.compile_events, fb.compile_events, cm.staging_events,
+             fb.staging_events, launch_counts())
+    assert state[:2] == (4, 4)
+    for n in range(12):
+        a = cm.predict_q_many(xs[:n], max_batch=8)
+        b = cm.predict_q_routed(xs[:n], route="compiled", max_batch=8)
+        np.testing.assert_array_equal(a, b)
+    for n in range(1, 9):
+        np.testing.assert_array_equal(cm.staged_infer(list(xs[:n])),
+                                      cm.predict_q_many(xs[:n]))
+    assert (cm.compile_events, fb.compile_events, cm.staging_events,
+            fb.staging_events, launch_counts()) == state

@@ -49,6 +49,26 @@ def test_paged_route_modules_import_alone(module):
     assert out.stdout.strip() == "", f"forbidden modules loaded: {out.stdout}"
 
 
+@pytest.mark.parametrize("modules", [
+    ("repro_torch.serve", "repro_torch.obs"), ("repro_torch.serve.registry",),
+    ("repro_torch.serve.resilience",), ("repro_torch.obs.__main__",)],
+    ids=lambda m: "+".join(m))
+def test_serving_modules_import_alone(modules):
+    """The serving stack and observability, imported first and alone, load
+    neither JAX nor the JAX package (the scheduler and the resilience
+    layer run on the port's engine)."""
+    code = ("import importlib, sys\n"
+            f"for m in {modules!r}:\n"
+            "    importlib.import_module(m)\n"
+            "print(','.join(sorted(n for n in sys.modules\n"
+            "      if n.split('.')[0] in ('jax', 'jaxlib', 'repro'))))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "", f"forbidden modules loaded: {out.stdout}"
+
+
 _FORBIDDEN = re.compile(
     r"^\s*(import\s+(jax|jaxlib|repro)\b(?!_)|from\s+(jax|jaxlib|repro)\b(?!_))",
     re.M)
