@@ -4,12 +4,15 @@
 
 Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
 (into ``build/repro_torch_kernels/``), then drives three paths of the port
-at full width, with random weights from a seed. A bucket call of the engine
-is a CUDA-graph replay: the first call of a bucket runs its batched forward
-once eagerly and captures it (two forwards' kernel-wrapper calls), and a
-replay calls no wrapper. So the counted phases check the calls each
-bucket's graph holds (``compile_log``), the total over eager runs and
-captures, and that replays leave every launch counter where it was.
+at full width, with random weights from a seed. An engine call is a
+CUDA-graph replay: the first one-sample ``predict_q`` captures the per-call
+forward, the first call of a bucket its batched forward; a capture runs the
+forward once eagerly and then captures it (two forwards' kernel-wrapper
+calls), and a replay calls no wrapper. So the counted phases check the
+calls each graph holds (``compile_log``), the total over eager runs and
+captures, and that replays leave every launch counter where it was. Bucket
+calls stage the logical rows only; the entry lane pad runs on the card,
+inside the graph.
 
 1. device   — the card, as torch and nvidia-smi see it;
 2. build    — nvcc time of every kernel source, built in parallel;
@@ -39,17 +42,21 @@ captures, and that replays leave every launch counter where it was.
               same input (exact; softmax ±1 LSB); no ``F.pad`` may run
               inside ``qdwconv_planned`` (the kernel fills the border);
 6. serve    — the first main path, counted: person's ``predict_q`` at batch
-              1 and ``predict_q_many`` on batches 1, 3, 8 (``max_batch=8``):
-              each captured bucket's graph holds 15 ``qmatmul`` + 13
-              ``qdwconv`` calls, replays call none; every row held against
-              the port's CPU plain route, and no border pad before a
-              depthwise layer;
+              1 (the per-call graph: one ``"percall"`` capture holding 15
+              ``qmatmul`` + 13 ``qdwconv`` calls; a second call launches
+              nothing) and ``predict_q_many`` on batches 1, 3, 8
+              (``max_batch=8``): each captured bucket's graph holds 15
+              ``qmatmul`` + 13 ``qdwconv`` calls, replays call none; every
+              row held against the port's CPU plain route, and no border
+              pad before a depthwise layer; per-call replay latency beside
+              the eager per-call forward's;
 7. paging   — the second main path, counted: the paged route (Sec. 4.3)
               with ``use_kernels=True`` on sine ``{0: 16, 1: 16}``, speech
               ``{2: 4}`` and person ``{29: 2}`` at ``predict_q`` and buckets
               1, 4, 8, the 256×256 FC (batch 4) at pages 2, 8 and 32, and
               the float speech model, whose FC runs on ``fmatmul``. Engines
-              are built inside the count with the probe's cache cleared.
+              are built inside the count with the probe's cache cleared;
+              ``predict_q`` captures each engine's per-call graph.
               Every row equals the card's unpaged engine and the port's CPU
               plain paged route (paged FC logits exact; softmax ±1 LSB);
               paged calls per forward and per bucket graph are checked
@@ -77,8 +84,25 @@ captures, and that replays leave every launch counter where it was.
               eager forward);
 10. trace   — torch.profiler over person bucket-8 calls (graph replays):
               device time by kernel and the device's busy share (over the
-              profiled window, and over the same 5 calls unprofiled), and
-              the bucket-8 graph's replay time from CUDA events.
+              profiled window, and over the same 5 calls unprofiled), the
+              bucket-8 graph's replay time from CUDA events, and the H2D
+              copies of the calls from the profiler's trace: one per call,
+              of the logical rows (8 × 96 × 96 × 1 = 73,728 B);
+11. pool    — a model's graphs share one memory pool: person's buckets 1,
+              2, 4, 8 captured in that order; for each pair (earlier e,
+              later l) the raw sequence replay l, replay e, read l's
+              outputs is run and the pairs whose outputs changed are
+              printed (the hazard), while the same interleaving through
+              the API gives every row of the eager forward; then 8 threads
+              call all four buckets and the per-call graph interleaved,
+              every row exact (the model-wide lock);
+12. audit   — the plan auditor on the card, for sine, speech and person on
+              the kernel route and paged speech ``{2: 4}``: no verifier
+              error, no no-retrace finding against the warmed engine, the
+              derived pad/cat count equal to the measured one, the
+              fingerprint equal to a CPU build's of the same graph and
+              flags, ``device_advisory`` printed; and ``python -m
+              repro_torch.analysis --selftest --device cuda`` exits 0.
 
 Each phase prints one JSON line (the ``kernels`` phase lists every call it
 timed, and ``explicit`` the seven explicit cases); then the ``kernels``
@@ -225,15 +249,14 @@ def host_ms(fn, reps: int = 20) -> float:
 
 def eager_forward(cm, xs):
     """One batched forward of ``cm``'s eager lowered function on ``xs``,
-    staged as a bucket's CUDA graph receives them (bucket-filled, in the
-    physical entry layout): the kernel calls the bucket's graph captured."""
+    staged as a bucket's CUDA graph receives them (the logical rows, zero
+    rows up to the bucket; the lane pad runs inside): the kernel calls the
+    bucket's graph captured."""
     from repro_torch.core.engine import bucket_for
-    (tid,) = cm.graph.inputs
     x = torch.as_tensor(np.asarray(xs), device="cuda")
-    staged = torch.zeros((bucket_for(len(xs)),) + cm.exec_plan.entry_shape(tid),
+    staged = torch.zeros((bucket_for(len(xs)),) + tuple(x.shape[1:]),
                          dtype=x.dtype, device="cuda")
-    staged[(slice(0, len(xs)),)
-           + tuple(slice(0, d) for d in cm.graph.tensor(tid).shape)] = x
+    staged[:len(xs)] = x
     return cm._batched_fn(staged)
 
 
@@ -578,6 +601,12 @@ def graph_launches(cm) -> dict:
             if e["kind"] == "bucket"}
 
 
+def percall_launches(cm) -> list:
+    """The kernel-wrapper calls each ``"percall"`` capture of ``cm`` holds
+    (one entry once ``predict_q`` has run on one sample)."""
+    return [e["launches"] for e in cm.compile_log if e["kind"] == "percall"]
+
+
 def reset_counts() -> None:
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels import paged_matmul as pm_mod
@@ -726,9 +755,9 @@ def phase_paging(models, fc256, float_speech):
                 + [cm.predict_q_many(xs[:b], max_batch=MAX_BATCH)
                    for b in PAGED_BUCKETS])
 
-    # predict_q is one eager forward; a bucket's first call is two (the
-    # eager run before its capture, and the capture)
-    n_fwd = 1 + 2 * len(PAGED_BUCKETS)
+    # predict_q's first call and a bucket's first call are two forwards
+    # each (the eager run before the capture, and the capture)
+    n_fwd = 2 + 2 * len(PAGED_BUCKETS)
     want_card, want_cpu, unpaged = {}, {}, {}
     for name, (g, xs) in models.items():
         paged = PAGED[name][1]
@@ -772,9 +801,8 @@ def phase_paging(models, fc256, float_speech):
     launches = launch_counts()
     wall_s = time.perf_counter() - t0
     for cm, xs in [(engines[n], xs) for n, (_, xs) in models.items()] + [
-            (float_cm, sxs)]:  # the buckets again: replays, no wrapper call
-        for b in PAGED_BUCKETS:
-            cm.predict_q_many(xs[:b], max_batch=MAX_BATCH)
+            (float_cm, sxs)]:  # the graphs again: replays, no wrapper call
+        forwards(cm, xs)
     torch.cuda.synchronize()
     check(launch_counts() == launches, "a replay called a kernel wrapper")
 
@@ -791,10 +819,14 @@ def phase_paging(models, fc256, float_speech):
         check((c["qmatmul"], c["qdwconv"]) == tuple(
             v * n_fwd for v in per_fwd_q[name]),
             f"{name}: unpaged launches {c}")
-        for b, gc in graph_launches(engines[name]).items():
+        check(len(percall_launches(engines[name])) == 1,
+              f"{name}: per-call captures {engines[name].compile_log}")
+        for e in engines[name].compile_log:
+            gc = e["launches"]
             check((gc["paged_qmatmul"], gc["qmatmul"], gc["qdwconv"])
                   == (paged_per_fwd,) + per_fwd_q[name],
-                  f"{name} bucket {b}: kernel calls in its graph {gc}")
+                  f"{name} {e['kind']} {e.get('bucket')}: kernel calls in "
+                  f"its graph {gc}")
         card_d = max(max_diff(a, b) for a, b in zip(got[name], want_card[name]))
         check(card_d == 0, f"{name}: paged rows differ from the card's "
                            f"unpaged engine by {card_d}")
@@ -832,7 +864,8 @@ def phase_paging(models, fc256, float_speech):
             "paged_op_bytes": {str(i): [pp.per_op[i], st.per_op[i]]
                                for i in paged},
             "bucket8_call_ms": bucket8}
-    check(per_model["fc256"]["paged_qmatmul"] == len(FC256_PAGES),
+    # each engine's predict_q: an eager run and the per-call capture
+    check(per_model["fc256"]["paged_qmatmul"] == 2 * len(FC256_PAGES),
           f"fc256 launches {per_model['fc256']}")
     for p in FC256_PAGES:
         check(max_diff(fc_got[p], fc_card) == 0 and
@@ -1084,14 +1117,173 @@ def phase_serving():
           "compile_events": captures, "staging_events": staging,
           "warmup_launches": {k: v for k, v in warm_counts.items() if v},
           "memory_reserved_bytes": reserved,
+          # this phase before logical staging and the per-model lock
+          # (lane-padded staging and static inputs, a lock per bucket), on
+          # an NVIDIA H100 80GB HBM3 at 700 W, for comparison
+          "memory_reserved_bytes_before": 1830813696,
           "requests": len(served), "clients": SERVING_CLIENTS,
           "serve_wall_s": round(wall, 4),
           "rows_per_s": round(len(served) / wall, 1),
+          "rows_per_s_before": [1611.6, 1522.3],
           "max_abs_diff_vs_cpu_plain": diffs,
           "stage_breakdown_us": tel["stage_breakdown_us"],
           "flight": tel.get("flight"), "degraded": degraded_report,
           "ms_per_bucket_call": latency})
     return models
+
+
+# ---------------------------------------------------------------------------
+# the trace's H2D copies, the shared graph pool, the plan auditor
+# ---------------------------------------------------------------------------
+
+def h2d_copies(prof) -> dict:
+    """The host-to-device copies in ``prof``'s trace: the bytes and the
+    device ms of each (the trace's memcpy events)."""
+    path = os.path.join(ROOT, "build", "trace_person_b8.json")
+    prof.export_chrome_trace(path)
+    with open(path) as fh:
+        events = json.load(fh).get("traceEvents", [])
+    copies = [e for e in events if e.get("cat") == "gpu_memcpy"
+              and "HtoD" in e.get("name", "")]
+    return {"bytes": [int(e.get("args", {}).get("bytes", -1))
+                      for e in copies],
+            "ms": [round(float(e.get("dur", 0.0)) / 1e3, 5) for e in copies]}
+
+
+def phase_pool(qg):
+    """Person's kernel route, buckets 1, 2, 4, 8 captured in that order in
+    the model's one graph pool. For each pair (earlier e, later l): the raw
+    sequence — replay l, replay e, read l's static outputs — recorded
+    (aliased: l's outputs changed), and the same interleaving through the
+    API, every row equal to the eager forward's. Then 8 threads call the
+    four buckets and the per-call graph interleaved; every row exact."""
+    import itertools
+    import threading
+
+    from repro_torch.core.engine import CompiledModel
+    cm = CompiledModel(qg, device="cuda")
+    rng = np.random.default_rng(SEED + 5)
+    shape = qg.tensor(qg.inputs[0]).shape
+    buckets = (1, 2, 4, 8)
+    xs = {b: rng.integers(-128, 128, (b,) + shape).astype(np.int8)
+          for b in buckets}
+    exes = {b: cm.compile_batched(b) for b in buckets}
+    staged = {b: torch.as_tensor(xs[b], device="cuda") for b in buckets}
+    eager = {b: cm._batched_fn(staged[b])[0].cpu().numpy() for b in buckets}
+    single = cm._fn(staged[1][0])[0].cpu().numpy()
+    aliased = []
+    for e, l in itertools.combinations(buckets, 2):
+        with cm._replay_lock, torch.cuda.stream(cm._stream):
+            exes[l].inputs[0].copy_(staged[l])
+            exes[l].graph.replay()
+            exes[e].inputs[0].copy_(staged[e])
+            exes[e].graph.replay()
+            raw = exes[l].outputs[0].cpu().numpy()
+        if not np.array_equal(raw, eager[l]):
+            aliased.append([e, l])
+        for b in (l, e, l):
+            check(np.array_equal(cm.predict_q_many(xs[b]), eager[b]),
+                  f"pool: bucket {b} differs after the pair ({e}, {l})")
+    errors, done, calls = [], [], 40
+
+    def worker(k):
+        try:
+            for i in range(calls):
+                b = buckets[(k + i) % 4]
+                if i % 8 == 7:
+                    ok = np.array_equal(cm.predict_q(xs[1][0]), single)
+                else:
+                    ok = np.array_equal(cm.predict_q_many(xs[b]), eager[b])
+                if not ok:
+                    errors.append((k, i, b))
+            done.append(k)
+        except Exception as e:  # surfaced by the check below
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=worker, args=(k,)) for k in range(8)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    wall = time.perf_counter() - t0
+    check(not any(t.is_alive() for t in threads) and errors == []
+          and sorted(done) == list(range(8)),
+          f"pool: threaded calls went wrong: {errors[:5]}")
+    check(cm.compile_events == 5, f"pool: {cm.compile_events} captures")
+    emit({"phase": "pool", "captures": [e["kind"] if e["kind"] == "percall"
+                                        else e["bucket"]
+                                        for e in cm.compile_log],
+          "pairs": 6, "aliased_pairs_raw": aliased,
+          "api_interleave_exact": True, "threads": 8,
+          "calls": 8 * calls, "threaded_exact": True,
+          "threaded_wall_s": round(wall, 4)})
+
+
+AUDIT_CASES = (("sine", None), ("speech", None), ("person", None),
+               ("speech", {2: 4}))
+
+
+def phase_audit():
+    """The plan auditor on the card (see the module docstring, 12)."""
+    from repro_torch.analysis import (device_advisory, errors, measured_pads,
+                                      pad_budget, plan_fingerprint)
+    from repro_torch.analysis.__main__ import audit_plan, quantized_graph
+    from repro_torch.core.engine import CompiledModel, ExecutionPlan
+
+    graphs = {n: quantized_graph(n, device="cuda")
+              for n in {n for n, _ in AUDIT_CASES}}
+    out = []
+    for name, paged in AUDIT_CASES:
+        g = graphs[name]
+        label = name + ("" if paged is None else f" paged {paged}")
+        cm = CompiledModel(g, device="cuda", paged=paged)
+        cm.warmup_batched(MAX_BATCH)
+        rep = audit_plan(name, cm.exec_plan, max_batch=MAX_BATCH,
+                         compiled_model=cm)
+        check(not errors(rep.verifier),
+              f"audit {label}: {[str(f) for f in errors(rep.verifier)]}")
+        check(rep.retrace_findings == [] and rep.retrace["ok"],
+              f"audit {label}: {[str(f) for f in rep.retrace_findings]}")
+        check(rep.ok, f"audit {label}: {[str(f) for f in errors(rep.findings)]}")
+        pads = {}
+        for r in rep.routes:
+            if r.route == "paged":
+                continue
+            batched = r.route != "per-call"
+            b = int(r.route.split("=")[1].rstrip("]")) if batched else 1
+            derived = pad_budget(cm.exec_plan, batched=batched, bucket=b)
+            got = measured_pads(cm.exec_plan, batched=batched, bucket=b)
+            check(derived.total == got,
+                  f"audit {label} {r.route}: derived {derived.total} pad/cat "
+                  f"calls, measured {got}: {derived.items}")
+            pads[r.route] = [derived.total, got, derived.enforceable]
+        cpu = ExecutionPlan.build(g, use_kernels=True, device="cpu",
+                                  paged=paged)
+        check(plan_fingerprint(cpu) == rep.fingerprint,
+              f"audit {label}: the card's fingerprint differs from the CPU "
+              f"build's")
+        out.append({"model": label, "ok": rep.ok,
+                    "findings": [str(f) for f in rep.findings],
+                    "retrace": rep.retrace, "fingerprint": rep.fingerprint,
+                    "fingerprint_equals_cpu_build": True,
+                    "pads_derived_measured_enforceable": pads,
+                    "arena_static_measured": {
+                        r.route: [r.arena.get("static_peak_bytes"),
+                                  r.arena.get("measured_peak_bytes")]
+                        for r in rep.routes},
+                    "device_advisory": device_advisory(cm)})
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.analysis",
+                           "--selftest", "--device", "cuda"], cwd=ROOT,
+                          env=env, capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 0, f"auditor selftest rc {proc.returncode}: "
+                                f"{proc.stderr[-2000:]}")
+    emit({"phase": "audit", "max_batch": MAX_BATCH, "models": out,
+          "selftest": {"rc": proc.returncode,
+                       "stdout": proc.stdout.strip().splitlines()[-1:],
+                       "wall_s": round(time.perf_counter() - t0, 3)}})
 
 
 # ---------------------------------------------------------------------------
@@ -1302,9 +1494,10 @@ def main() -> int:
     phase_layers(cm, qg, xq[0])
 
     # -- the first main path, counted ----------------------------------------
-    # predict_q runs the eager per-call forward; the first predict_q_many of
-    # a bucket runs its batched forward once eagerly and captures it as a
-    # CUDA graph (two forwards' kernel calls), every later call replays it
+    # the first one-sample predict_q runs the per-call forward once eagerly
+    # and captures it as a CUDA graph (two forwards' kernel calls); the
+    # first predict_q_many of a bucket does the same with its batched
+    # forward; every later call replays
     want_rows = plain_cpu.predict_q_many(xq, max_batch=MAX_BATCH)
     reset_counts()
     with counting_border_pads() as border:
@@ -1317,16 +1510,20 @@ def main() -> int:
     captured = graph_launches(cm)
     check(sorted(captured) == sorted({bucket_for(b) for b in SERVE_BATCHES}),
           f"captured buckets {sorted(captured)}")
-    for b, c in captured.items():
+    percall = percall_launches(cm)
+    check(len(percall) == 1, f"per-call captures: {percall}")
+    for what, c in [(f"bucket {b}", c) for b, c in captured.items()] + [
+            ("per-call", percall[0])]:
         check({k: c[k] for k in LAUNCHES_PER_FORWARD} == LAUNCHES_PER_FORWARD
               and sum(c.values()) == sum(LAUNCHES_PER_FORWARD.values()),
-              f"bucket {b}: kernel calls in its graph {c}")
-    n_forwards = 1 + 2 * len(captured)
+              f"{what}: kernel calls in its graph {c}")
+    n_forwards = 2 + 2 * len(captured)
     check(launches == {k: v * n_forwards
                        for k, v in LAUNCHES_PER_FORWARD.items()},
           f"launches {launches} for {n_forwards} forwards")
     check(border["pads"] == 0, f"{border['pads']} border pads before the "
                                f"depthwise layers of {n_forwards} forwards")
+    single_again = cm.predict_q(xq[0])
     replayed = {b: cm.predict_q_many(xq[:b], max_batch=MAX_BATCH)
                 for b in SERVE_BATCHES}
     torch.cuda.synchronize()
@@ -1340,6 +1537,8 @@ def main() -> int:
 
     check(single.shape == (1, 2) and close(single, want_rows[0]) <= 1,
           "predict_q differs from the CPU plain route")
+    check(np.array_equal(single_again, single),
+          "the per-call replay differs from the captured call")
     for b, out in served.items():
         check(out.shape == (b, 1, 2), f"batch {b}: shape {out.shape}")
         check(close(out, want_rows[:b]) <= 1,
@@ -1349,13 +1548,17 @@ def main() -> int:
     serve_ms = {str(bucket_for(b)): host_ms(
         lambda b=b: cm.predict_q_many(xq[:b], max_batch=MAX_BATCH))
         for b in SERVE_BATCHES}
+    x1 = torch.as_tensor(xq[0], device="cuda")
+    percall_ms = {"replay_ms": host_ms(lambda: cm.predict_q(xq[0])),
+                  "eager_ms": host_ms(lambda: [o.cpu() for o in cm._fn(x1)])}
     emit({"phase": "serve", "launches": launches, "forwards": n_forwards,
           "graph_launches": {str(b): c for b, c in captured.items()},
+          "percall_launches": percall[0],
           "border_pads_before_depthwise": border["pads"],
           "softmax_max_abs_diff": max(close(single, want_rows[0]),
                                       *(close(o, want_rows[:b])
                                         for b, o in served.items())),
-          "ms_per_bucket_call": serve_ms})
+          "ms_per_bucket_call": serve_ms, "ms_per_percall": percall_ms})
 
     # -- the second main path, counted ---------------------------------------
     paging_launches = phase_paging(paged_models, fc256, float_speech)
@@ -1396,7 +1599,12 @@ def main() -> int:
             by_kernel[evt.key] = by_kernel.get(evt.key, 0.0) + dt / 1e3
     device_ms = sum(by_kernel.values())
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]
+    h2d = h2d_copies(prof)
+    check(h2d["bytes"] == [8 * 96 * 96 * 1] * 5,
+          f"H2D copies of 5 bucket-8 calls: {h2d}")
     emit({"phase": "trace", "forwards": 5, "bucket": 8,
+          "h2d_copies": len(h2d["bytes"]), "h2d_bytes": h2d["bytes"],
+          "h2d_ms": h2d["ms"],
           "window_ms": round(window_ms, 3), "device_ms": round(device_ms, 3),
           "busy_share": round(device_ms / window_ms, 4) if window_ms else None,
           "graph_replay_ms": replay_ms,
@@ -1405,6 +1613,9 @@ def main() -> int:
           "busy_share_unprofiled": round(device_ms / plain_window_ms, 4),
           "top_device_ms": [[k[:80], round(v, 4)] for k, v in top],
           "script_s": round(time.perf_counter() - t_start, 3)})
+
+    phase_pool(qg)
+    phase_audit()
 
     # -- summary: per forward at bucket 1 (and 8) of the path each kernel is on
     keys = ("ms", "plain_ms", "bound_ms", "library_ms", "call_ms")

@@ -11,18 +11,21 @@ layout cannot drift between them. With the layout plan, kernel-routed ops exchan
 in lane-padded layout: padding at graph entry, slicing at graph outputs and
 non-kernel boundaries.
 
-Bucket executables: ``predict_q`` accepts inputs with one extra leading
-batch dimension. Each batch runs in its power-of-two bucket, whose
-executable (:meth:`CompiledModel.compile_batched`, the counterpart of the
-reference's AOT bucket executables) is built once: on CUDA the batched
-forward captured as one CUDA graph over static device buffers in the
-staged entry layout (``entry_shape``), so a bucket call is one graph
-replay between two copies; on the CPU the eager batched function. Rows are
-staged into pooled host buffers (pinned on CUDA) that are born in the
-physical entry layout and zero outside the rows in use, so the bucket
-zero-fill and the entry lane pad cost nothing; rows are bit-identical to
-batch-1 calls. ``predict_q_many`` chunks large batches on bucket
-boundaries; ``staged_infer`` is the serving flush's zero-allocation path.
+Executables: the per-call forward (:meth:`CompiledModel.compile`, the
+counterpart of the reference's AOT per-call executable) and one executable
+per power-of-two batch bucket (:meth:`CompiledModel.compile_batched`, the
+counterpart of its AOT bucket executables) are each built once. On CUDA
+each is the forward captured as one CUDA graph over static device buffers
+of the graph inputs' logical shapes, so a call is one graph replay between
+two copies; on the CPU the eager function. ``predict_q`` accepts inputs
+with one extra leading batch dimension, run in their bucket. Rows are
+staged into pooled host buffers (pinned on CUDA) of the logical shape
+``(bucket,) + t.shape``, zero outside the rows in use, so the bucket
+zero-fill costs nothing and only the real rows cross to the device; the
+entry lane pad of the layout plan runs inside the bucket's forward, on the
+device. Rows are bit-identical to batch-1 calls. ``predict_q_many`` chunks
+large batches on bucket boundaries; ``staged_infer`` is the serving
+flush's zero-allocation path.
 
 Degradation chain: :meth:`CompiledModel.routes` lists the routes a model
 can serve, primary first (``"kernels"`` → ``"compiled"`` → ``"reference"``;
@@ -39,6 +42,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch.obs.trace import engine_event, engine_span
 from . import graph as G
@@ -108,11 +112,19 @@ class ExecutionPlan:
 
         With ``batched=True`` every activation carries one extra leading
         batch dimension and ops run through their registry batch rules;
-        inputs may arrive in ``entry_shape`` layout or logical."""
+        inputs may arrive in ``entry_shape`` layout or logical. A logical
+        input whose entry layout is lane-padded is padded once, on entry
+        (the staged pad of the reference, inside the forward), so every
+        planned consumer reads the same padded value."""
         g = self.graph
         run = R.run_batched if batched else R.run_compiled
         layouts = self.layout.layouts if self.layout is not None else {}
         lead = (slice(None),) if batched else ()
+        # graph input -> lanes of its entry pad on the batched path
+        entry_pad = ({tid: self.entry_shape(tid)[-1] - g.tensor(tid).shape[-1]
+                      for tid in g.inputs
+                      if self.entry_shape(tid) != tuple(g.tensor(tid).shape)}
+                     if batched else {})
         ctxs = [R.OpContext(g, op, i, folded=self.folded.get(i),
                             use_kernels=self.use_kernels,
                             n_pages=self.paged.get(i), layout=layouts.get(i),
@@ -122,6 +134,9 @@ class ExecutionPlan:
 
         def fn(*inputs):
             env = dict(zip(g.inputs, inputs))
+            for tid, lanes in entry_pad.items():
+                if tuple(env[tid].shape[1:]) == g.tensor(tid).shape:
+                    env[tid] = F.pad(env[tid], (0, lanes))
 
             def val(tid, keep_padded=False):
                 if tid in consts:
@@ -192,23 +207,29 @@ class _EagerBucket:
         return tuple(o[:rows].numpy().copy() for o in self._fn(*bufs))
 
 
-class _GraphBucket:
-    """A bucket's executable on CUDA: the batched forward captured as one
-    CUDA graph over static device inputs of the staged entry layout, with
-    static (contiguous) outputs and pinned host buffers for them.
+class _GraphExecutable:
+    """An executable on CUDA: a forward (the per-call one, or a bucket's
+    batched one) captured as one CUDA graph over static device inputs of
+    the graph inputs' logical shapes, with static (contiguous) outputs and
+    pinned host buffers for them.
 
     The forward runs once eagerly on the capture stream first (kernel
     libraries loaded, library handles made), then is captured on that
     private stream with ``capture_error_mode="thread_local"``, so serving
-    threads that launch work meanwhile do not break the capture. The
-    static buffers are shared by every call of the bucket, so a call holds
-    ``lock`` from the copy in until its rows are back on the host.
-    ``launches`` counts the kernel-wrapper calls the graph holds (made
-    during the capture; a replay calls no wrapper)."""
+    threads that launch work meanwhile do not break the capture.
 
-    def __init__(self, fn, shapes, dtypes, device, pool, stream):
+    Every graph of a model lives in the model's one memory pool, and a
+    later capture may place its outputs in blocks an earlier one used as
+    scratch: replaying the earlier graph between a later graph's replay
+    and the read of its outputs would overwrite them. So every call holds
+    ``lock``, the MODEL's lock (shared by all its graphs), from the copy in
+    until the rows are back on the host; the replays serialize on the
+    model's one stream anyway. ``launches`` counts the kernel-wrapper calls
+    the graph holds (made during the capture; a replay calls no wrapper)."""
+
+    def __init__(self, fn, shapes, dtypes, device, pool, stream, lock):
         from repro_torch.kernels import launch_counts
-        self.lock = threading.Lock()
+        self.lock = lock
         self.stream = stream
         self.inputs = tuple(torch.zeros(s, dtype=d, device=device)
                             for s, d in zip(shapes, dtypes))
@@ -228,16 +249,19 @@ class _GraphBucket:
                           for o in self.outputs)
         self.done = torch.cuda.Event()
 
-    def run(self, bufs, rows: int) -> tuple:
+    def run(self, bufs, rows: Optional[int] = None) -> tuple:
+        """Copy ``bufs`` in, replay, and return the outputs (their first
+        ``rows`` rows on a bucket's graph) as fresh numpy arrays."""
+        window = slice(None) if rows is None else slice(0, rows)
         with self.lock, torch.cuda.stream(self.stream):
             for dst, src in zip(self.inputs, bufs):
                 dst.copy_(src, non_blocking=True)
             self.graph.replay()
             for h, o in zip(self.host, self.outputs):
-                h[:rows].copy_(o[:rows], non_blocking=True)
+                h[window].copy_(o[window], non_blocking=True)
             self.done.record(self.stream)
             self.done.synchronize()
-            return tuple(h[:rows].numpy().copy() for h in self.host)
+            return tuple(h[window].numpy().copy() for h in self.host)
 
 
 class CompiledModel:
@@ -258,15 +282,19 @@ class CompiledModel:
 
     Results are numpy arrays in the graph's dtypes.
 
-    Thread-safety: the bucket executables fill under ``_compile_lock``
-    with a double-checked lookup, so concurrent ``predict_q_many`` calls
-    on a cold bucket build it exactly once (warm lookups take no lock);
-    a bucket's call holds that bucket's lock. The staging pool checks out
-    and returns buffer sets under ``_staging_lock``. Every fill is recorded
-    twice: the monotone ``compile_events`` counter (after warm-up it must
-    not move on the serving path) and the typed ``compile_log``
-    (``{"kind": "bucket", "cache": None, "bucket": b}``, plus the
-    kernel-wrapper calls the graph holds, ``"launches"``, on CUDA).
+    Thread-safety, as in the reference: every lazy build (the per-call and
+    bucket executables, the compiled fallback, the reference interpreter)
+    fills under ``_compile_lock`` with a double-checked lookup, so racing
+    callers build it exactly once (warm lookups take no lock); the
+    interpreter's row loop holds ``_ref_lock`` alone. On CUDA every call of
+    a captured graph holds the model's ``_replay_lock`` (see
+    :class:`_GraphExecutable`), and so does every capture. The staging pool
+    checks out and returns buffer sets under ``_staging_lock``. Every build
+    is recorded twice: the monotone ``compile_events`` counter (after
+    warm-up it must not move on the serving path) and the typed
+    ``compile_log`` (``{"kind": "bucket", "cache": None, "bucket": b}`` or
+    ``{"kind": "percall", "cache": None}``, plus the kernel-wrapper calls
+    the graph holds, ``"launches"``, on CUDA).
     """
 
     def __init__(self, g: G.Graph, use_kernels: bool = True,
@@ -276,29 +304,29 @@ class CompiledModel:
                                              device, paged)
         self._fn = self.exec_plan.lower()
         self._batched_fn = self.exec_plan.lower(batched=True)
+        self._percall = None    # the per-call executable
         self._fallback = None   # use_kernels=False sibling ("compiled")
         self._reference = None  # Interpreter ("reference")
-        self._lock = threading.Lock()  # lazy routes; the arena is stateful
-        self._compile_lock = threading.Lock()  # guards bucket fills
+        self._ref_lock = threading.Lock()  # the interpreter's arena
+        self._compile_lock = threading.Lock()  # guards every lazy build
         self._buckets: dict = {}  # bucket size -> executable
-        # one graph memory pool and one replay stream for all of this
-        # model's buckets (made at the first capture): replays on one
-        # stream never overlap, so the buckets can share scratch memory
+        # one graph memory pool, one replay stream and one lock for all of
+        # this model's graphs (made at the first capture)
         self._pool = None
         self._stream = None
+        self._replay_lock = threading.Lock()
         # Pooled host staging buffers (pinned on CUDA) for the batched path:
-        # bucket -> [tuple of per-input tensors], each born in the bucket's
-        # physical entry layout, ``(bucket,) + entry_shape(tid)``, and kept
-        # zero outside the rows in use, so assembling a flush is a row
-        # copy, never an allocation or a pad.
+        # bucket -> [tuple of per-input tensors], each of the logical shape
+        # ``(bucket,) + t.shape`` and kept zero outside the rows in use, so
+        # assembling a flush is a row copy, never an allocation.
         self._staging: dict = {}
         self._staging_lock = threading.Lock()
         self._staging_cap = 4   # buffer sets kept per bucket
         # Monotone count of staging-buffer allocations: after warm-up it
         # must not move on the serving hot path.
         self.staging_events = 0
-        # Monotone count of bucket-executable builds (CUDA-graph captures
-        # on the card): after warm-up it must not move either.
+        # Monotone count of executable builds (CUDA-graph captures on the
+        # card): after warm-up it must not move either.
         self.compile_events = 0
         self.compile_log: list = []
 
@@ -325,7 +353,7 @@ class CompiledModel:
     def memory_report(self):
         return memory_report(self.graph)
 
-    # -- bucket executables ------------------------------------------------
+    # -- executables -------------------------------------------------------
     def _note_compile(self, kind: str, **extra) -> None:
         """Record one executable build (caller holds ``_compile_lock``) and
         make it visible to an active trace scope: a traced request paying a
@@ -334,11 +362,53 @@ class CompiledModel:
         self.compile_log.append({"kind": kind, "cache": None, **extra})
         engine_event("compile", kind=kind, **extra)
 
+    def _capture(self, fn, lead: tuple) -> _GraphExecutable:
+        """Capture ``fn`` over static inputs of shape ``lead + t.shape`` into
+        the model's pool (caller holds ``_compile_lock``)."""
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+            self._stream = torch.cuda.Stream(self.device)
+        g = self.graph
+        with self._replay_lock:
+            return _GraphExecutable(
+                fn, [lead + tuple(g.tensor(t).shape) for t in g.inputs],
+                [_DTYPES[g.tensor(t).dtype] for t in g.inputs], self.device,
+                self._pool, self._stream, self._replay_lock)
+
+    def compile(self):
+        """The per-call executable, built once (the reference's AOT
+        ``compile()``): on CUDA the per-call forward captured as one CUDA
+        graph over logical-shape inputs, in the model's pool; on the CPU the
+        eager per-call function. Logged as ``"percall"`` either way."""
+        exe = self._percall
+        if exe is not None:
+            return exe
+        with self._compile_lock:
+            if self._percall is None:
+                if self.device.type == "cuda":
+                    exe = self._capture(self._fn, ())
+                    self._note_compile("percall", launches=exe.launches)
+                else:
+                    exe = self._fn
+                    self._note_compile("percall")
+                self._percall = exe
+            return self._percall
+
+    @property
+    def executable(self):
+        return self.compile()
+
+    def cached_percall(self):
+        """The per-call executable when built, else None."""
+        with self._compile_lock:
+            return self._percall
+
     def compile_batched(self, batch: int):
         """The executable of ``batch``'s bucket, built once and cached,
         lowered from the shared :class:`ExecutionPlan` (layout plan
-        included) over inputs in the staged entry layout. On CUDA it is one
-        CUDA-graph capture; on the CPU the eager batched function."""
+        included) over logical-shape inputs, the entry lane pad inside. On
+        CUDA it is one CUDA-graph capture; on the CPU the eager batched
+        function."""
         bucket = bucket_for(batch)
         exe = self._buckets.get(bucket)
         if exe is not None:
@@ -348,16 +418,7 @@ class CompiledModel:
             if exe is not None:
                 return exe  # built while we waited
             if self.device.type == "cuda":
-                if self._pool is None:
-                    self._pool = torch.cuda.graph_pool_handle()
-                    self._stream = torch.cuda.Stream(self.device)
-                g = self.graph
-                exe = _GraphBucket(
-                    self._batched_fn,
-                    [(bucket,) + self.exec_plan.entry_shape(t)
-                     for t in g.inputs],
-                    [_DTYPES[g.tensor(t).dtype] for t in g.inputs],
-                    self.device, self._pool, self._stream)
+                exe = self._capture(self._batched_fn, (bucket,))
                 self._buckets[bucket] = exe
                 self._note_compile("bucket", bucket=bucket,
                                    launches=exe.launches)
@@ -370,6 +431,62 @@ class CompiledModel:
         """Batch buckets with a built executable, sorted."""
         with self._compile_lock:
             return tuple(sorted(self._buckets))
+
+    def cached_bucket(self, bucket: int):
+        """The built executable of ``bucket`` (KeyError when cold)."""
+        with self._compile_lock:
+            return self._buckets[bucket]
+
+    def _entry_widths(self, tid, batch: int) -> tuple:
+        """Per-dimension (0, pad) widths that stage one batched input: the
+        bucket fill on the batch dim and the planned entry lane pad (the
+        reference's ``_entry_widths``)."""
+        t = self.graph.tensor(tid)
+        return ((0, bucket_for(batch) - batch),) + tuple(
+            (0, p - d) for p, d in zip(self.exec_plan.entry_shape(tid),
+                                       t.shape))
+
+    def staged_pad_keys(self) -> tuple:
+        """(shape, widths) staging keys the built buckets cover, sorted —
+        the reference's staged-pad cache keys, for the no-retrace auditor
+        (``repro_torch.analysis.retrace``). The port has no separate stage
+        executable: a batch's bucket fill is the zero rows of its staging
+        buffer and its lane pad runs inside its bucket's executable, so a
+        batch is covered exactly when its bucket is built. A key is listed
+        for every batch whose bucket is built and whose widths are not all
+        zero, as the reference lists the pads it compiled."""
+        keys = set()
+        for b in self.bucket_sizes():
+            for batch in range(b // 2 + 1, b + 1):
+                for tid in self.graph.inputs:
+                    widths = self._entry_widths(tid, batch)
+                    if any(w for _, w in widths):
+                        keys.add(((batch,) + tuple(self.graph.tensor(tid).shape),
+                                  widths))
+        return tuple(sorted(keys))
+
+    def memory_analysis(self) -> dict:
+        """What the card can tell of this model's memory, after the
+        per-call executable is built (as the reference's
+        ``memory_analysis`` compiles it first): ``graph_pool_bytes``, the
+        bytes of the segments the caching allocator holds for the model's
+        graph pool (``torch.cuda.memory._snapshot``), what its captures
+        drew; ``memory_reserved_bytes`` (``torch.cuda.memory_reserved``,
+        the whole process) and ``captures``. ``{}`` on the CPU, which has
+        no graph pool."""
+        self.compile()
+        if self.device.type != "cuda":
+            return {}
+        with self._compile_lock:
+            captures = 1 + len(self._buckets)
+            pool = tuple(self._pool)
+        segments = torch.cuda.memory._snapshot(self.device)["segments"]
+        return {"graph_pool_bytes": int(sum(
+                    seg["total_size"] for seg in segments
+                    if tuple(seg.get("segment_pool_id", ())) == pool)),
+                "memory_reserved_bytes":
+                    int(torch.cuda.memory_reserved(self.device)),
+                "captures": captures}
 
     def warmup_batched(self, max_batch: int) -> "CompiledModel":
         """Ahead-of-serving warm-up: build every power-of-two bucket up to
@@ -400,17 +517,17 @@ class CompiledModel:
     def _new_staging(self, bucket: int) -> tuple:
         self.staging_events += 1
         pin = self.device.type == "cuda"
-        return tuple(torch.zeros((bucket,) + self.exec_plan.entry_shape(tid),
+        return tuple(torch.zeros((bucket,) + tuple(self.graph.tensor(tid).shape),
                                  dtype=_DTYPES[self.graph.tensor(tid).dtype],
                                  pin_memory=pin)
                      for tid in self.graph.inputs)
 
     def acquire_staging(self, bucket: int) -> tuple:
         """Check out one zero-filled staging buffer set (one host tensor per
-        graph input, ``(bucket,) + entry_shape``, pinned on CUDA).
-        Thread-safe; a cold checkout allocates (counted in
-        ``staging_events``), a warm one reuses — ``warmup_batched``
-        fills each bucket's pool so serving never allocates."""
+        graph input, of the logical shape ``(bucket,) + t.shape``, pinned on
+        CUDA). Thread-safe; a cold checkout allocates (counted in
+        ``staging_events``), a warm one reuses — ``warmup_batched`` fills
+        each bucket's pool so serving never allocates."""
         with self._staging_lock:
             pool = self._staging.get(bucket)
             if pool:
@@ -430,9 +547,8 @@ class CompiledModel:
                 pool.append(bufs)
 
     def predict_q_staged(self, bufs: tuple, rows: int):
-        """Run the bucket executable on prestaged physical-layout buffers:
-        they already ARE its entry contract (bucket zero-fill and lane pad
-        included), so this is the copy in, the replay and the first
+        """Run the bucket executable on prestaged logical-shape buffers:
+        the copy in, the replay (entry lane pad included) and the first
         ``rows`` rows copied out."""
         bucket = int(bufs[0].shape[0])
         exe = self.compile_batched(bucket)
@@ -458,9 +574,8 @@ class CompiledModel:
         bufs = self.acquire_staging(bucket)
         try:
             dst = bufs[0].numpy()
-            window = tuple(slice(0, d) for d in t.shape)  # logical region
             for i, row in enumerate(rows):
-                dst[(i,) + window] = np.asarray(row, t.dtype).reshape(t.shape)
+                dst[i] = np.asarray(row, t.dtype).reshape(t.shape)
             return self.predict_q_staged(bufs, n)
         finally:
             self.release_staging(bucket, bufs, n)
@@ -476,10 +591,6 @@ class CompiledModel:
                      np.dtype(self.graph.tensor(t).dtype))
             for t in self.graph.outputs))
 
-    def _to_device(self, arr, t: G.TensorSpec, shape) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(arr, t.dtype).reshape(shape),
-                               device=self.device)
-
     def _predict_q_batched(self, inputs):
         arrs = []
         for tid, arr in zip(self.graph.inputs, inputs):
@@ -493,27 +604,32 @@ class CompiledModel:
         bucket = bucket_for(batch)
         bufs = self.acquire_staging(bucket)
         try:
-            # the rows go into buffers that are born bucket-filled and
-            # lane-padded; the span marks a flush that pads its bucket
-            with (engine_span("pad_stage", batch=batch) if batch < bucket
-                  else contextlib.nullcontext()):
-                for tid, a, buf in zip(self.graph.inputs, arrs, bufs):
-                    shape = self.graph.tensor(tid).shape
-                    buf.numpy()[(slice(0, batch),)
-                                + tuple(slice(0, d) for d in shape)] = a
+            for tid, a, buf in zip(self.graph.inputs, arrs, bufs):
+                # the span marks staging that pads, as the reference's does:
+                # a bucket fill (zero rows of the buffer) or an entry lane
+                # pad (inside the bucket's forward, on the device)
+                with (engine_span("pad_stage", batch=batch)
+                      if any(w for _, w in self._entry_widths(tid, batch))
+                      else contextlib.nullcontext()):
+                    buf.numpy()[:batch] = a
             return self.predict_q_staged(bufs, batch)
         finally:
             self.release_staging(bucket, bufs, batch)
 
     def predict_q(self, *inputs):
         """Graph-dtype in / graph-dtype out. Inputs may carry one extra
-        leading batch dimension (routed through the bucketed batch path)."""
+        leading batch dimension (routed through the bucketed batch path);
+        one sample runs the per-call executable (:meth:`compile`, built at
+        the first call)."""
         if self._is_batched(inputs[0]):
             return self._predict_q_batched(inputs)
-        args = [self._to_device(arr, self.graph.tensor(tid),
-                                self.graph.tensor(tid).shape)
+        exe = self.executable
+        args = [torch.from_numpy(np.array(arr, self.graph.tensor(tid).dtype)
+                                 .reshape(self.graph.tensor(tid).shape))
                 for tid, arr in zip(self.graph.inputs, inputs)]
-        return _single(tuple(o.cpu().numpy() for o in self._fn(*args)))
+        if self.device.type == "cuda":
+            return _single(exe.run(args))
+        return _single(tuple(o.numpy() for o in exe(*args)))
 
     def predict_q_many(self, *inputs, max_batch: Optional[int] = None):
         """Batched ``predict_q`` that splits a batch into bucket-aligned
@@ -554,29 +670,33 @@ class CompiledModel:
                 else ("compiled", "reference"))
 
     def _fallback_compiled(self) -> "CompiledModel":
-        with self._lock:
-            if self._fallback is None:
-                self._fallback = CompiledModel(
-                    self.graph, use_kernels=False, device=self.device,
-                    paged=self.paged)
+        if self._fallback is None:
+            with self._compile_lock:
+                if self._fallback is None:
+                    self._fallback = CompiledModel(
+                        self.graph, use_kernels=False, device=self.device,
+                        paged=self.paged)
         return self._fallback
 
     def _reference_interp(self):
-        with self._lock:
-            if self._reference is None:
-                from .interpreter import Interpreter
-                self._reference = Interpreter(self.graph, device=self.device)
+        if self._reference is None:
+            with self._compile_lock:
+                if self._reference is None:
+                    from .interpreter import Interpreter
+                    self._reference = Interpreter(self.graph,
+                                                  device=self.device)
         return self._reference
 
     def _predict_q_reference(self, inputs):
         """Row-by-row interpreter execution of a batched input. The
-        interpreter's arena is reused across rows, so calls serialize."""
+        interpreter's arena is reused across rows, so calls serialize on
+        ``_ref_lock`` (and on nothing else)."""
         arrs = [np.asarray(a) for a in inputs]
         if arrs[0].shape[0] == 0:
             return self._empty_rows()
         interp = self._reference_interp()
         rows = []
-        with self._lock:
+        with self._ref_lock:
             for i in range(arrs[0].shape[0]):
                 out = interp.invoke_q(*(a[i] for a in arrs))
                 rows.append(out if isinstance(out, tuple) else (out,))

@@ -125,11 +125,13 @@ class LayoutPlan:
     """op index -> OpLayout, plus tensor id -> physical shape for every
     activation stored in padded layout, plus ``entry_phys``: graph-input
     tensor id -> lane-padded per-sample shape when a planned op consumes it
-    (the batched engine stages those inputs pre-padded)."""
+    (the batched forward pads those inputs on entry), plus the lane
+    ``quantum`` the plan was made at."""
 
     layouts: dict
     phys: dict
     entry_phys: dict = dataclasses.field(default_factory=dict)
+    quantum: int = MXU_LANES
 
     def to(self, device) -> "LayoutPlan":
         return dataclasses.replace(
@@ -208,7 +210,7 @@ def plan_layout(g: G.Graph, folded: dict, quantum: int = MXU_LANES,
             t = g.tensor(tid)
             if t.shape[-1] != lay.in_lanes:
                 entry_phys[tid] = tuple(t.shape[:-1]) + (lay.in_lanes,)
-    return LayoutPlan(layouts, phys, entry_phys)
+    return LayoutPlan(layouts, phys, entry_phys, quantum)
 
 
 def _planned_consts(fc: FoldedConsts, n: int, n_pad: int) -> tuple:

@@ -18,7 +18,7 @@ call — the only part with real latency — is behind a swappable backend:
   1`` flushes from several models in a ``ServingRegistry`` interleave on
   one shared pool (one pool ≈ one accelerator's submission streams).
   Requires the model call to be thread-safe — ``CompiledModel`` locks its
-  bucket-executable fills, and each bucket's replay, precisely so
+  executable builds, and every replay of a model's graphs, precisely so
   concurrent ``predict_q_many`` calls are safe (see
   ``repro_torch.core.engine``).
 

@@ -74,7 +74,8 @@ class ServingRegistry:
                 or audit_path is not None:
             raise NotImplementedError(
                 "the persistent executable cache (cache=, cache_dir=, "
-                "audit_path=) is not ported yet: ROADMAP Queue 1 item 9")
+                "audit_path=) is not ported yet: ROADMAP Queue 1 item 4, the "
+                "executable cache")
         self.clock = clock or Clock()
         if executor is None and executor_workers is not None:
             # convenience: size the shared off-loop pool without importing

@@ -34,7 +34,7 @@ InferenceExecutor` and turns the dispatch stage's all-or-nothing contract
   request no longer takes its batchmates down with it.
 * **Output-validity guard** (:func:`make_output_guard`): the plan
   auditor's static per-output bounds (dtype, fused-activation clamp
-  range — :func:`static_output_bounds`) become a runtime
+  range — ``repro_torch.analysis.static_output_bounds``) become a runtime
   check; a dispatch returning NaN/inf, the wrong dtype, or values the
   plan proves impossible is treated exactly like a raised exception
   (silent corruption becomes a retryable fault).
@@ -94,48 +94,17 @@ class InvalidOutputError(RuntimeError):
         self.detail = detail
 
 
-def static_output_bounds(plan) -> dict:
-    """Compile-time validity contract for every graph output: ``{tensor id:
-    (dtype, lo, hi)}`` — the port's copy of
-    ``repro.analysis.static_output_bounds``, over the port's
-    ``ExecutionPlan``.
-
-    ``lo``/``hi`` are the tightest static bounds the plan proves for the
-    output's values on EVERY route (the routes share one folding, so one
-    bound covers kernels/compiled/reference alike): the dtype's
-    representable range, narrowed by the producing op's folded fused-
-    activation clamp (``ops_ref.clamp_bounds``) when one is folded."""
-    from repro_torch.core.ops_ref import clamp_bounds
-
-    g = plan.graph
-    producer = {op.outputs[0]: i for i, op in enumerate(g.ops)}
-    out = {}
-    for tid in g.outputs:
-        t = g.tensor(tid)
-        dt = np.dtype(t.dtype)
-        if np.issubdtype(dt, np.integer):
-            info = np.iinfo(dt)
-            lo, hi = float(info.min), float(info.max)
-        else:
-            lo, hi = float("-inf"), float("inf")
-        i = producer.get(tid)
-        fc = plan.folded.get(i) if i is not None else None
-        if fc is not None:
-            clo, chi = clamp_bounds(fc, g.ops[i].attrs.get("fused", "NONE"))
-            lo, hi = max(lo, clo), min(hi, chi)
-        out[tid] = (dt, lo, hi)
-    return out
-
-
 def make_output_guard(plan) -> Callable:
     """Build ``validate(ys, rows)`` from a plan's static output bounds.
 
     The guard raises :class:`InvalidOutputError` when the stacked output
-    violates the compile-time contract (see :func:`static_output_bounds`);
-    it costs one pass over the output rows and allocates nothing.
-    Single-output graphs only (all three paper models), matching the
-    batcher's contract.
+    violates the compile-time contract (see
+    ``repro_torch.analysis.static_output_bounds``); it costs one pass over
+    the output rows and allocates nothing. Single-output graphs only (all
+    three paper models), matching the batcher's contract.
     """
+    from repro_torch.analysis import static_output_bounds
+
     bounds = static_output_bounds(plan)
     tid = plan.graph.outputs[0]
     dt, lo, hi = bounds[tid]

@@ -379,7 +379,7 @@ class MicroBatcher:
         if cache is not None:
             raise NotImplementedError(
                 "the persistent executable cache is not ported yet: "
-                "ROADMAP Queue 1 item 9")
+                "ROADMAP Queue 1 item 4, the executable cache")
         max_batch = kw.get("max_batch", 32)
         if warmup:
             # only the bucketed batch executables: the batcher always stacks

@@ -221,28 +221,152 @@ def test_bucket_graph_replays_equal_eager_rows(gen, name, use_kernels):
     for b in (1, 2, 4, 8):
         for rows in sorted({b, max(1, b - 1)}):
             got = cm.predict_q_many(xs[:rows])
-            staged = torch.zeros((b,) + cm.exec_plan.entry_shape(tid),
-                                 dtype=torch.int8, device="cuda")
-            staged[(slice(0, rows),) + tuple(slice(0, d) for d in shape)] = \
-                torch.as_tensor(xs[:rows], device="cuda")
+            staged = torch.zeros((b,) + shape, dtype=torch.int8,
+                                 device="cuda")  # the logical rows
+            staged[:rows] = torch.as_tensor(xs[:rows], device="cuda")
             before = launch_counts()
             eager = cm._batched_fn(staged)[0][:rows].cpu().numpy()
             calls = {k: v - before[k] for k, v in launch_counts().items()}
             np.testing.assert_array_equal(got, eager)
         assert [e["launches"] for e in cm.compile_log
-                if e["bucket"] == b] == [calls]
+                if e["kind"] == "bucket" and e["bucket"] == b] == [calls]
+        assert tuple(cm.cached_bucket(b).inputs[0].shape) == (b,) + shape
     assert cm.bucket_sizes() == (1, 2, 4, 8) and cm.compile_events == 4
+
+
+@pytest.mark.parametrize("use_kernels", [True, False],
+                         ids=["kernels", "compiled"])
+@pytest.mark.parametrize("name", ["sine", "speech", "person"])
+def test_percall_graph_replays_equal_eager_rows(gen, name, use_kernels):
+    """``predict_q`` on one sample captures the per-call forward at its
+    first call (one ``"percall"`` entry holding the wrapper calls of one
+    eager per-call forward) and replays it after: rows equal to the eager
+    forward's, and a replay calls no wrapper."""
+    from repro_torch.kernels import launch_counts
+    cm, xs = _paper_engine(name, use_kernels)
+    (tid,) = cm.graph.inputs
+    before = launch_counts()
+    eager = [cm._fn(torch.as_tensor(x, device="cuda"))[0].cpu().numpy()
+             for x in xs[:3]]
+    per_fwd = {k: (v - before[k]) // 3 for k, v in launch_counts().items()}
+    first = cm.predict_q(xs[0])
+    (entry,) = cm.compile_log
+    assert entry["kind"] == "percall" and entry["launches"] == per_fwd
+    before = launch_counts()
+    got = [cm.predict_q(x) for x in xs[:3]]
+    assert launch_counts() == before  # replays call no wrapper
+    np.testing.assert_array_equal(first, got[0])
+    for y, e in zip(got, eager):
+        np.testing.assert_array_equal(y, e)
+    assert cm.compile_events == 1 and cm.cached_percall() is cm.executable
+    mem = cm.memory_analysis()
+    assert mem["captures"] == 1
+    assert 0 < mem["graph_pool_bytes"] <= mem["memory_reserved_bytes"]
+
+
+def _staged_rows(cm, xs, b):
+    """``xs`` staged as bucket ``b``'s logical input, on the card."""
+    (tid,) = cm.graph.inputs
+    x = torch.zeros((b,) + cm.graph.tensor(tid).shape, dtype=torch.int8,
+                    device="cuda")
+    x[:len(xs)] = torch.as_tensor(xs, device="cuda")
+    return x
+
+
+def test_graph_pool_pairs_replayed_out_of_order(gen):
+    """Person's kernel route, buckets 1, 2, 4, 8 captured in that order into
+    the model's one pool. For each pair (earlier capture e, later capture
+    l), the raw sequence — replay l, replay e, then read l's static outputs
+    — is recorded (a pair whose outputs changed shares pool blocks: the
+    hazard), and the same interleaving through the API (l's call, e's call,
+    l's call) gives every row of the eager forward: the model-wide lock
+    keeps the raw sequence unreachable."""
+    import itertools
+    cm, _ = _paper_engine("person")
+    rng = np.random.default_rng(7)
+    shape = cm.graph.tensor(cm.graph.inputs[0]).shape
+    xs = {b: rng.integers(-128, 128, (b,) + shape).astype(np.int8)
+          for b in (1, 2, 4, 8)}
+    exes = {b: cm.compile_batched(b) for b in (1, 2, 4, 8)}
+    eager = {b: cm._batched_fn(_staged_rows(cm, xs[b], b))[0].cpu().numpy()
+             for b in xs}
+    aliased = []
+    for e, l in itertools.combinations((1, 2, 4, 8), 2):
+        E, L = exes[e], exes[l]
+        with cm._replay_lock, torch.cuda.stream(cm._stream):
+            L.inputs[0].copy_(_staged_rows(cm, xs[l], l))
+            L.graph.replay()
+            E.inputs[0].copy_(_staged_rows(cm, xs[e], e))
+            E.graph.replay()
+            raw = L.outputs[0].cpu().numpy()
+        if not np.array_equal(raw, eager[l]):
+            aliased.append((e, l))
+        for b in (l, e, l):
+            np.testing.assert_array_equal(cm.predict_q_many(xs[b]), eager[b])
+    print(f"pairs whose raw out-of-order replay changed the later graph's "
+          f"outputs: {aliased}")
+
+
+def test_threaded_bucket_interleave_is_exact(gen):
+    """8 threads call ``predict_q_many`` on buckets 1, 2, 4 and 8
+    interleaved (and one-sample ``predict_q`` on the per-call graph, which
+    shares the pool) on one warmed person engine: every row equals the
+    eager forward's."""
+    import sys
+    import threading
+    cm, _ = _paper_engine("person")
+    cm.warmup_batched(8)
+    rng = np.random.default_rng(9)
+    shape = cm.graph.tensor(cm.graph.inputs[0]).shape
+    xs = {b: rng.integers(-128, 128, (b,) + shape).astype(np.int8)
+          for b in (1, 2, 4, 8)}
+    want = {b: cm._batched_fn(_staged_rows(cm, xs[b], b))[0].cpu().numpy()
+            for b in xs}
+    single = cm._fn(torch.as_tensor(xs[1][0], device="cuda"))[0].cpu().numpy()
+    errors, done = [], []
+
+    def worker(k):
+        try:
+            for i in range(24):
+                b = (1, 2, 4, 8)[(k + i) % 4]
+                if i % 6 == 5:
+                    if not np.array_equal(cm.predict_q(xs[1][0]), single):
+                        errors.append((k, i, "percall"))
+                elif not np.array_equal(cm.predict_q_many(xs[b]), want[b]):
+                    errors.append((k, i, b))
+            done.append(k)
+        except Exception as e:  # surfaced by the assertion below
+            errors.append(repr(e))
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=worker, args=(k,))
+                   for k in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(t.is_alive() for t in threads)
+    assert errors == [] and sorted(done) == list(range(8))
+    assert cm.compile_events == 5  # 4 buckets and the per-call graph
 
 
 def test_no_recapture_or_wrapper_call_after_warmup(gen):
     """After ``warmup_routes(8)`` no batch of 0..11 rows on either engine
     route, and no staged flush of 1..8 rows, captures a graph, allocates a
-    staging buffer or calls a kernel wrapper."""
+    staging buffer or calls a kernel wrapper; the staging buffers hold the
+    logical rows."""
     from repro_torch.kernels import launch_counts
     cm, xs = _paper_engine("person")
     xs = np.concatenate([xs, xs[:3]])
     cm.warmup_routes(8)
     fb = cm._fallback_compiled()
+    shape = cm.graph.tensor(cm.graph.inputs[0]).shape
+    for b, sets in cm._staging.items():
+        assert all(tuple(s[0].shape) == (b,) + shape for s in sets)
     state = (cm.compile_events, fb.compile_events, cm.staging_events,
              fb.staging_events, launch_counts())
     assert state[:2] == (4, 4)

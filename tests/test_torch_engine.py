@@ -63,6 +63,32 @@ def test_small_predict_q_many_matches_reference(small, use_kernels):
             np.testing.assert_array_equal(got[1][r], singles[r][1])
 
 
+@pytest.mark.parametrize("use_kernels", [True, False])
+def test_percall_executable_is_logged_once(small, use_kernels):
+    """The per-call executable (the reference's ``compile()``): built at the
+    first one-sample ``predict_q`` (or by ``compile()``), logged once as
+    ``"percall"`` exactly as the JAX engine logs its AOT compile, and
+    reused; on the CPU it is the eager per-call function, whose rows it
+    gives, equal to the JAX engine's."""
+    jq, tq, xs = small
+    jm = JCompiled(jq, use_pallas=use_kernels)
+    jm.compile()
+    port = CompiledModel(tq, use_kernels=use_kernels, device="cpu")
+    assert port.cached_percall() is None
+    got = [port.predict_q(x) for x in xs[:3]]
+    assert port.compile_log == jm.compile_log == [{"kind": "percall",
+                                                   "cache": None}]
+    assert port.compile_events == 1
+    assert port.compile() is port.executable is port.cached_percall() \
+        is port._fn
+    assert port.memory_analysis() == {}  # no graph pool on the CPU
+    for x, y in zip(xs[:3], got):
+        eager = port.exec_plan.lower()(torch.from_numpy(x))
+        np.testing.assert_array_equal(y[0], eager[0].numpy())
+        np.testing.assert_array_equal(y[1], eager[1].numpy())
+        _assert_outputs(y, [np.asarray(r) for r in jm.predict_q(x)])
+
+
 def test_small_per_call_route_matches_planned(small):
     """``layout_plan=False`` (pad/slice per call) computes the same rows."""
     _, tq, xs = small

@@ -9,6 +9,8 @@ On the card a bucket's executable is a CUDA graph (``tests/test_torch_cuda.py``
 replays it); here it is the eager batched function, noted once per bucket,
 so the compile-once and bucket invariants are the same ones.
 """
+import types
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -21,12 +23,14 @@ from repro.core import CompiledModel as JModel
 from repro.core import engine as JE
 from repro.core import ops_ref as JO
 from repro.core.quantize import quantize_graph as j_quantize
+from repro.obs import trace as j_trace
 from repro.serve import registry as j_registry
 from repro.serve import scheduler as j_scheduler
 from repro_torch.core import engine as TE
 from repro_torch.core import ops_ref as TO
 from repro_torch.core.engine import CompiledModel as TModel
 from repro_torch.core.engine import ExecutionPlan
+from repro_torch.obs import trace as t_trace
 from repro_torch.serve import registry as t_registry
 from repro_torch.serve import scheduler as t_scheduler
 
@@ -126,25 +130,116 @@ def test_compile_once_and_pool_stable(graphs, name, use_kernels):
 
 
 def test_predict_q_staged_takes_physical_buffers(graphs):
-    """A staging buffer set is in the physical entry layout (lane-padded
-    for a planned first op) and zero outside the rows in use;
-    ``predict_q_staged`` on it equals ``predict_q_many`` of the rows."""
-    _, tg = graphs["person"]
+    """A staging buffer set has the LOGICAL shape ``(bucket,) + t.shape``,
+    also where the planned first op consumes a lane-padded entry: the lane
+    pad runs inside the bucket's forward, so only the real rows are staged
+    (and, on the card, copied to the device). It is zero outside the rows
+    in use; ``predict_q_staged`` on it equals ``predict_q_many`` of the
+    rows, and the JAX engine's rows."""
+    jg, tg = graphs["person"]
     tm = TModel(tg, device="cpu")
     (tid,) = tg.inputs
     logical = tuple(tg.tensor(tid).shape)
     phys = tm.exec_plan.entry_shape(tid)
     assert phys[-1] > logical[-1]  # conv0 consumes a lane-padded input
     bufs = tm.acquire_staging(4)
-    assert tuple(bufs[0].shape) == (4,) + phys
+    assert tuple(bufs[0].shape) == (4,) + logical
+    assert bufs[0].dtype == torch.int8
     xs = _rows(tg, 3, seed=2)
-    bufs[0].numpy()[(slice(0, 3),) + tuple(slice(0, d) for d in logical)] = xs
+    bufs[0].numpy()[:3] = xs
     got = tm.predict_q_staged(bufs, 3)
     tm.release_staging(4, bufs, 3)
     want = tm.predict_q_many(xs)
     for a, b in zip(got, want):
         assert_i8_equal(a, b)
     assert not bool(bufs[0].any())
+    ref = JModel(jg, use_pallas=True).predict_q_many(xs)
+    assert_i8_equal(got[0], ref[0])
+    assert_softmax_close(got[1], ref[1])
+
+
+class _SpanNames:
+    """A trace handle that records the names of the engine spans made while
+    it is the active scope (both packages' ``obs.trace._Scope``)."""
+
+    def __init__(self):
+        self.names = []
+        self.clock = types.SimpleNamespace(now=lambda: 0.0)
+
+    def span(self, name, t0, t1, **attrs):
+        self.names.append(name)
+
+    def event(self, name, t, **attrs):
+        pass
+
+
+@pytest.mark.parametrize("use_kernels", [True, False],
+                         ids=["kernels", "compiled"])
+@pytest.mark.parametrize("name", ["sine", "person"])
+def test_pad_stage_spans_match_reference(graphs, name, use_kernels):
+    """``pad_stage`` is emitted where the reference emits it: on every
+    batched call that pads, by a bucket fill (batch < bucket) or by an entry
+    lane pad (a planned first op: every call on the kernel route), and by
+    neither ``staged_infer`` nor a call that pads nothing. The port's kernel
+    route is held against the reference's Pallas route."""
+    jg, tg = graphs[name]
+    jm = JModel(jg, use_pallas=use_kernels).warmup_batched(4)
+    tm = TModel(tg, use_kernels=use_kernels, device="cpu").warmup_batched(4)
+    xs = _rows(tg, 4, seed=7)
+    for call in ([lambda m, n=n: m.predict_q_many(xs[:n], max_batch=4)
+                  for n in range(1, 5)]
+                 + [lambda m, n=n: m.staged_infer(list(xs[:n]))
+                    for n in (1, 3)]):
+        spans = []
+        for mod, m in ((j_trace, jm), (t_trace, tm)):
+            rec = _SpanNames()
+            with mod._Scope(rec):
+                call(m)
+            spans.append(rec.names)
+        assert spans[1] == spans[0]
+        assert spans[1][-1] == "device"
+    lane = tm.exec_plan.entry_shape(tg.inputs[0]) != tg.tensor(
+        tg.inputs[0]).shape
+    assert lane == use_kernels
+
+
+def test_compiled_route_does_not_wait_for_reference_rows(graphs):
+    """The lock split of the reference: the interpreter's row loop holds
+    ``_ref_lock`` and nothing else, and the lazy builds take
+    ``_compile_lock``; so a ``"compiled"`` call (its fallback built cold
+    here) returns while another thread is inside a ``"reference"`` call."""
+    import threading
+    _, tg = graphs["sine"]
+    tm = TModel(tg, device="cpu")
+    xs = _rows(tg, 3, seed=8)
+    interp = tm._reference_interp()
+    inside, release = threading.Event(), threading.Event()
+    invoke = interp.invoke_q
+
+    def held(*args):
+        inside.set()
+        release.wait(60)
+        return invoke(*args)
+
+    interp.invoke_q = held
+    ref_rows, compiled_rows, done = [], [], threading.Event()
+    ref = threading.Thread(target=lambda: ref_rows.append(
+        tm.predict_q_routed(xs, route="reference")))
+    comp = threading.Thread(target=lambda: (compiled_rows.append(
+        tm.predict_q_routed(xs, route="compiled")), done.set()))
+    ref.start()
+    try:
+        assert inside.wait(30) and tm._ref_lock.locked()
+        comp.start()
+        returned = done.wait(10)
+    finally:
+        release.set()
+        ref.join(60)
+        comp.join(60)
+    assert not ref.is_alive() and not comp.is_alive()
+    assert returned, "the compiled route waited for the reference rows"
+    assert_i8_equal(compiled_rows[0], ref_rows[0])
+    assert_i8_equal(compiled_rows[0], tm.predict_q_many(xs))
 
 
 def test_staging_pool_is_bounded():
@@ -280,11 +375,33 @@ def test_batched_forward_is_capture_safe(graphs, name, use_kernels, paged):
     pages = {fc[-1]: 2} if paged else None
     tm = TModel(tg, use_kernels=use_kernels, device="cpu", paged=pages)
     (tid,) = tg.inputs
-    x = torch.zeros((4,) + tm.exec_plan.entry_shape(tid), dtype=torch.int8)
+    # a bucket's static input: the logical rows; the lane pad is inside
+    x = torch.zeros((4,) + tg.tensor(tid).shape, dtype=torch.int8)
     with _HostTraffic() as seen:
         outs = tm._batched_fn(x)
     assert seen == []
     assert outs[0].shape[0] == 4
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["unpaged", "paged"])
+@pytest.mark.parametrize("use_kernels", [True, False],
+                         ids=["kernels", "compiled"])
+@pytest.mark.parametrize("name", ["sine", "speech", "person"])
+def test_percall_forward_is_capture_safe(graphs, name, use_kernels, paged):
+    """What the per-call CUDA graph captures: the per-call forward on one
+    logical sample makes no tensor from host data on a device and reads no
+    value back, on both engine routes and the paged route."""
+    _, tg = graphs[name]
+    fc = [i for i, op in enumerate(tg.ops) if op.op == "FULLY_CONNECTED"
+          and tg.tensor(op.inputs[1]).shape[1] % 2 == 0]
+    pages = {fc[-1]: 2} if paged else None
+    tm = TModel(tg, use_kernels=use_kernels, device="cpu", paged=pages)
+    (tid,) = tg.inputs
+    x = torch.zeros(tg.tensor(tid).shape, dtype=torch.int8)
+    with _HostTraffic() as seen:
+        outs = tm._fn(x)
+    assert seen == []
+    assert tuple(outs[0].shape) == tg.tensor(tg.outputs[0]).shape
 
 
 def test_folded_consts_keep_host_scalars(graphs):
@@ -317,7 +434,8 @@ def test_paper_registry_matches_reference(name):
 @pytest.mark.parametrize("kw", [{"cache": object()}, {"cache_dir": "c"},
                                 {"audit_path": "a.json"}])
 def test_persistent_cache_is_not_ported(kw):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+    where = "Queue 1 item 4, the executable cache"
+    with pytest.raises(NotImplementedError, match=where):
         t_registry.ServingRegistry(**kw)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+    with pytest.raises(NotImplementedError, match=where):
         t_scheduler.MicroBatcher.for_model(object(), cache=kw)

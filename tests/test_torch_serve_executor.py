@@ -259,9 +259,9 @@ def test_concurrent_predict_q_many_bit_exact(warm):
 
 
 def test_concurrent_warmup_and_compile_single_instance():
-    """Racing warmup_batched + compile_batched from threads never
-    double-fills a bucket: every bucket maps to exactly one executable
-    object, built once (the port has no per-call executable to race)."""
+    """Racing warmup_batched + compile() from threads never double-fills a
+    cache slot: one per-call executable, every bucket maps to exactly one
+    executable object, each built once."""
     rng = np.random.default_rng(8)
     qg = quantize_graph(
         build_sine(),
@@ -269,14 +269,13 @@ def test_concurrent_warmup_and_compile_single_instance():
     cm = CompiledModel(qg, device="cpu")
     with ThreadPoolExecutor(max_workers=4) as pool:
         list(pool.map(lambda _: cm.warmup_batched(4), range(4)))
-        raced = list(pool.map(lambda i: cm.compile_batched(1 + i % 4),
-                              range(8)))
+        aots = list(pool.map(lambda _: cm.compile(), range(4)))
+    assert all(a is aots[0] for a in aots)  # one per-call executable
     exes = [cm.compile_batched(b) for b in (1, 2, 4)]
     assert len({id(e) for e in exes}) == 3  # one executable per bucket
-    assert all(e is cm.compile_batched(b) for e, b in
-               zip(raced, [1 + i % 4 for i in range(8)]))
-    assert cm.compile_events == 3
-    assert [e["bucket"] for e in cm.compile_log] == [1, 2, 4]
+    assert cm.compile_events == 4
+    assert [(e["kind"], e.get("bucket")) for e in cm.compile_log] == [
+        ("bucket", 1), ("bucket", 2), ("bucket", 4), ("percall", None)]
 
 
 # -------------------------------------------------- close idempotence --

@@ -3,9 +3,11 @@ scenario.
 
 The same seeded arrival script (sine and speech requests in two priority
 classes, bursts that hit the bounded queue) goes through ``repro.serve``
-over the JAX ``CompiledModel(use_pallas=False)`` and through
-``repro_torch.serve`` over the port's ``CompiledModel(device="cpu")``, the
-quantized graphs carried across with ``repro.core.graph.save`` ->
+over the JAX ``CompiledModel`` and through ``repro_torch.serve`` over the
+port's ``CompiledModel(device="cpu")``: the port's kernel route against the
+reference's Pallas route (``use_pallas=True``, interpret mode), its plain
+route against the reference's plain engine. The quantized graphs are
+carried across with ``repro.core.graph.save`` ->
 ``repro_torch.core.graph.load``. Compared with tolerance 0 (softmax rows
 ±1 LSB): every request's served row and terminal status, the retry and
 degrade counts and every other ``ModelMetrics`` counter, each trace id's
@@ -180,7 +182,10 @@ def _masked(text: str) -> list:
     ("kernels", "none"), ("kernels", "scripted"), ("compiled", "chaos")])
 def test_serving_matches_reference(graphs, route, faults):
     script = _script(graphs)
-    jax_models = {n: JModel(j) for n, (j, _) in graphs.items()}
+    # the kernel route against the reference's Pallas route (interpret
+    # mode here), the plain route against its plain engine
+    jax_models = {n: JModel(j, use_pallas=route == "kernels")
+                  for n, (j, _) in graphs.items()}
     port_models = {n: TModel(t, use_kernels=route == "kernels",
                              device="cpu") for n, (_, t) in graphs.items()}
     j_out, j_snap, j_text, j_spans, j_routes = _run(JAX, jax_models, script,
