@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
-(into ``build/repro_torch_kernels/``), then drives three paths of the port
+(into ``build/repro_torch_kernels/``), then drives four paths of the port
 at full width, with random weights from a seed. An engine call is a
 CUDA-graph replay: the first one-sample ``predict_q`` captures the per-call
 forward, the first call of a bucket its batched forward; a capture runs the
@@ -102,7 +102,32 @@ inside the graph.
               derived pad/cat count equal to the measured one, the
               fingerprint equal to a CPU build's of the same graph and
               flags, ``device_advisory`` printed; and ``python -m
-              repro_torch.analysis --selftest --device cuda`` exits 0.
+              repro_torch.analysis --selftest --device cuda`` exits 0;
+13. coldstart — the fourth main path: the serving registry's boot from the
+              executable cache (``repro_torch.serve.aotcache``), each boot
+              in a fresh process (``chip_smoke.py --boot``):
+              ``build_paper_registry`` of sine, speech and person at full
+              width (``max_batch=32``, ``cache_dir=``), both engine routes
+              warmed through the cache, then rows at batches 1, 3, 8 on
+              both routes and 8 requests a model through the registry. The
+              cold boot (empty cache, the checkout's build directory) builds
+              and stores; the warm boot (same cache, an empty build
+              directory) must hit on every engine with ``compile_events``
+              0, the cold boot's ``capture_events`` and kernel launches, no
+              nvcc run and the build directory still empty; a third boot
+              from a copy of the cache with the ``qdwconv`` library
+              truncated (stored once, under ``lib/``) must miss with C003
+              on the first engine that needs it, boot it cold, hit on the
+              others (a later one finds the library loaded) and heal the
+              file. Every boot's rows equal the cold
+              boot's bit for bit and the CPU plain route (±1 LSB on a
+              softmax). Wall seconds split into plan builds, captures,
+              staging, store, load and library installs, beside the
+              ``build`` phase's nvcc seconds;
+14. examples — ``examples/torch_quickstart.py``,
+              ``torch_person_detection.py`` and ``torch_serve_tinyml.py 64``
+              (and ``--chaos``) on the card, each in its own process: exit
+              0 and their "✓" lines.
 
 Each phase prints one JSON line (the ``kernels`` phase lists every call it
 timed, and ``explicit`` the seven explicit cases); then the ``kernels``
@@ -112,6 +137,7 @@ non-zero without the last line.
 """
 from __future__ import annotations
 
+import hashlib
 import json
 import math
 import os
@@ -1287,6 +1313,318 @@ def phase_audit():
 
 
 # ---------------------------------------------------------------------------
+# cold start: the registry's boot, cold, warm from the cache, and corrupt
+# ---------------------------------------------------------------------------
+
+COLDSTART_NAMES = ("sine", "speech", "person")
+COLDSTART_BATCHES = (1, 3, 8)
+COLDSTART_BUCKETS = 6          # buckets 1..32 per engine route
+COLDSTART_LIBRARIES = {"qmatmul", "qdwconv", "probe"}
+
+
+class _Timers:
+    """Exclusive wall seconds spent in wrapped functions, by key: a timed
+    call nested in another (a capture inside a cache load) counts only
+    under its own key. One thread (the boot's)."""
+
+    def __init__(self):
+        self.total: dict = {}
+        self._stack: list = []
+
+    def wrap(self, owner, attr: str, key: str) -> None:
+        import inspect
+        fn = getattr(owner, attr)
+        static = isinstance(inspect.getattr_static(owner, attr), classmethod)
+
+        def timed(*args, **kw):
+            t0 = time.perf_counter()
+            self._stack.append(0.0)
+            try:
+                return fn(*args, **kw)
+            finally:
+                dt = time.perf_counter() - t0
+                inner = self._stack.pop()
+                self.total[key] = self.total.get(key, 0.0) + dt - inner
+                if self._stack:
+                    self._stack[-1] += dt
+
+        setattr(owner, attr, staticmethod(timed) if static else timed)
+
+
+def boot_main(argv) -> int:
+    """One registry boot in a fresh process (``chip_smoke.py --boot CACHE
+    BUILD_DIR OUT``; the ``coldstart`` phase runs three): the three paper
+    models at full width with ``cache_dir=CACHE``, both engine routes warmed
+    through the cache, then requests; ``BUILD_DIR`` (if not empty) replaces
+    the kernels' build directory. Writes what the boot did to ``OUT``."""
+    import asyncio
+    from pathlib import Path
+
+    cache_dir, build_dir, out_path = argv
+    if not torch.cuda.is_available():
+        print("chip_smoke --boot: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.core.engine import CompiledModel, ExecutionPlan
+    from repro_torch.kernels import _build
+    from repro_torch.serve.aotcache import AotCache
+    from repro_torch.serve.registry import build_paper_registry
+    if build_dir:
+        _build.BUILD_DIR = Path(build_dir)
+    timers = _Timers()
+    for owner, attr, key in (
+            (ExecutionPlan, "build", "plan_builds"),
+            (CompiledModel, "_make_executable", "captures"),
+            (CompiledModel, "_warm_staging", "staging"),
+            (AotCache, "store", "store"),
+            (AotCache, "load", "load"),
+            (AotCache, "install_libraries", "install_libraries")):
+        timers.wrap(owner, attr, key)
+
+    reset_counts()
+    t0 = time.perf_counter()
+    reg = build_paper_registry(COLDSTART_NAMES, device="cuda",
+                               max_batch=SERVING_MAX_BATCH,
+                               cache_dir=cache_dir)
+    models = {n: reg._entry(n).model for n in COLDSTART_NAMES}
+    for m in models.values():
+        # the registry warmed the kernel route through the cache; the rest
+        # of warmup_routes: the compiled fallback, through the cache too,
+        # and the reference interpreter
+        m._fallback_compiled().warmup_batched(SERVING_MAX_BATCH,
+                                              cache=reg.cache)
+        m._reference_interp()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    boot_launches = launch_counts()
+
+    def engines():
+        return {f"{n}/{route}": eng for n, m in models.items()
+                for route, eng in (("kernels", m),
+                                   ("compiled", m._fallback_compiled()))}
+
+    state = {k: (e.compile_events, e.capture_events, e.staging_events)
+             for k, e in engines().items()}
+    pools = _serving_pools(models)
+    rows = {}
+    for n, m in models.items():
+        for b in COLDSTART_BATCHES:
+            rows[f"{n}/kernels/{b}"] = m.predict_q_many(
+                pools[n][:b], max_batch=SERVING_MAX_BATCH)
+            rows[f"{n}/compiled/{b}"] = m.predict_q_routed(
+                pools[n][:b], route="compiled", max_batch=SERVING_MAX_BATCH)
+
+    async def serve():
+        async with reg:
+            return {n: await asyncio.gather(*(
+                reg.infer(n, pools[n][j]) for j in range(max(
+                    COLDSTART_BATCHES)))) for n in models}
+
+    for n, ys in asyncio.run(serve()).items():
+        rows[f"{n}/served/{len(ys)}"] = np.stack([np.asarray(y) for y in ys])
+    torch.cuda.synchronize()
+    check({k: (e.compile_events, e.capture_events, e.staging_events)
+           for k, e in engines().items()} == state,
+          "an engine built, captured or allocated while serving")
+    diffs = {}
+    for n, m in models.items():
+        want = CompiledModel(m.graph, use_kernels=False, device="cpu") \
+            .predict_q_many(pools[n][:max(COLDSTART_BATCHES)])
+        mine = {k: r for k, r in rows.items() if k.startswith(n + "/")}
+        for k, r in mine.items():
+            check(r.shape == want[:len(r)].shape, f"{k}: shape {r.shape}")
+        diffs[n] = max(_rows_equal(n, r, want[:len(r)])
+                       for r in mine.values())
+    split = {k: round(v, 4) for k, v in sorted(timers.total.items())}
+    doc = {"wall_s": round(wall, 4), "split_s": split,
+           "other_s": round(wall - sum(timers.total.values()), 4),
+           "engines": {k: {"compile_events": e.compile_events,
+                           "capture_events": e.capture_events,
+                           "cache_events": e.cache_events,
+                           "cache": e.last_cache_result.to_dict()}
+                       for k, e in engines().items()},
+           "stats": reg.cache.stats(), "libraries": _build.libraries(),
+           "build_dir": sorted(os.listdir(_build.BUILD_DIR))
+           if _build.BUILD_DIR.exists() else None,
+           "launches": boot_launches, "max_abs_diff_vs_cpu_plain": diffs,
+           "telemetry": {k: {c: v[c] for c in ("compile_events",
+                                                "capture_events",
+                                                "cache_events")}
+                         for k, v in reg.telemetry()["engines"].items()},
+           "rows": {k: v.tolist() for k, v in rows.items()}}
+    with open(out_path, "w") as f:
+        json.dump(doc, f)
+    return 0
+
+
+def _boot(label: str, root: str, cache_dir: str, build_dir: str) -> dict:
+    out = os.path.join(root, f"{label}.json")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--boot",
+                           cache_dir, build_dir, out], cwd=ROOT,
+                          env=dict(os.environ,
+                                   PYTHONPATH=os.path.join(ROOT, "src")),
+                          capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 0, f"{label} boot: rc {proc.returncode}: "
+                                f"{proc.stderr[-3000:]}")
+    with open(out) as f:
+        doc = json.load(f)
+    doc["process_s"] = round(time.perf_counter() - t0, 3)
+    return doc
+
+
+def _boot_summary(doc: dict) -> dict:
+    return {k: doc[k] for k in ("process_s", "wall_s", "split_s", "other_s",
+                                "stats", "libraries", "build_dir",
+                                "max_abs_diff_vs_cpu_plain")} | {
+        "launches": {k: v for k, v in doc["launches"].items() if v},
+        "engines": {k: {"hit": e["cache"]["hit"],
+                        "reason": e["cache"]["reason"],
+                        "findings": e["cache"]["findings"],
+                        "compile_events": e["compile_events"],
+                        "capture_events": e["capture_events"],
+                        "cache_events": e["cache_events"]}
+                    for k, e in doc["engines"].items()}}
+
+
+def phase_coldstart(build_wall_s: float, nvcc_s: dict) -> dict:
+    """The registry's boot from the executable cache (see the module
+    docstring, 13): cold, warm with an empty build directory, and from a
+    copy of the cache with one library truncated."""
+    import shutil
+
+    root = os.path.join(ROOT, "build", "coldstart")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    cache = os.path.join(root, "cache")
+    cold = _boot("cold", root, cache, "")
+    empty = os.path.join(root, "empty_build")
+    os.makedirs(empty)
+    warm = _boot("warm", root, cache, empty)
+    damaged = os.path.join(root, "corrupt_cache")
+    shutil.copytree(cache, damaged)
+    victim, listing = None, set()  # the library, the manifests naming it
+    for fp in sorted(os.listdir(damaged)):
+        man = os.path.join(damaged, fp, "manifest.json")
+        if os.path.exists(man):
+            with open(man) as f:
+                lib = json.load(f).get("libraries", {}).get("qdwconv")
+            if lib:
+                victim = os.path.join(damaged, "lib", lib["file"])
+                listing.add(fp)
+                victim_sha = lib["sha256"]
+    check(victim is not None, "no cache entry carries the qdwconv library")
+    size = os.path.getsize(victim)
+    with open(victim, "r+b") as f:
+        f.truncate(size // 2)
+    corrupt = _boot("corrupt", root, damaged, "")
+    with open(victim, "rb") as f:
+        healed = hashlib.sha256(f.read()).hexdigest() == victim_sha
+
+    want_hits = 2 * len(COLDSTART_NAMES)
+    check(cold["stats"] == {"root": cache, "hits": 0, "misses": want_hits,
+                            "stores": want_hits}, f"cold: {cold['stats']}")
+    for key, e in cold["engines"].items():
+        check(not e["cache"]["hit"]
+              and e["cache"]["reason"].startswith("no manifest")
+              and e["compile_events"] == e["capture_events"]
+              == COLDSTART_BUCKETS, f"cold {key}: {e}")
+    check(warm["stats"]["hits"] == want_hits and warm["stats"]["misses"] == 0,
+          f"warm: {warm['stats']}")
+    for key, e in warm["engines"].items():
+        check(e["cache"]["hit"] and e["compile_events"] == 0
+              and e["capture_events"]
+              == cold["engines"][key]["capture_events"]
+              and e["cache_events"]["hit"] == COLDSTART_BUCKETS,
+              f"warm {key}: {e}")
+    libs = warm["libraries"]
+    check(libs["nvcc_s"] == {}, f"warm boot ran nvcc: {libs['nvcc_s']}")
+    check(set(libs["loaded"]) == COLDSTART_LIBRARIES
+          and all(v["source"] == "cache" for v in libs["loaded"].values()),
+          f"warm boot libraries: {libs['loaded']}")
+    check(warm["build_dir"] == [] and os.listdir(empty) == [],
+          f"the warm boot wrote to its build directory: {warm['build_dir']}")
+    for label, doc in (("cold", cold), ("warm", warm), ("corrupt", corrupt)):
+        check({k for k, v in doc["launches"].items() if v}
+              == COLDSTART_LIBRARIES, f"{label} boot launches: "
+                                      f"{doc['launches']}")
+    check(warm["launches"] == cold["launches"],
+          f"launches: warm {warm['launches']}, cold {cold['launches']}")
+    for label, doc in (("warm", warm), ("corrupt", corrupt)):
+        check(doc["rows"] == cold["rows"],
+              f"{label} rows differ from the cold boot's")
+    # the first engine to need the truncated library misses (C003) and
+    # builds cold, loading it from the build directory; one that needs it
+    # later finds it loaded under the same build name and hits, as does
+    # every engine that does not need it; the miss's store heals the file
+    missed = []
+    for key, e in corrupt["engines"].items():
+        if e["cache"]["hit"]:
+            check(e["compile_events"] == 0, f"corrupt {key}: {e}")
+            continue
+        missed.append(key)
+        check(e["cache"]["fingerprint"] in listing
+              and any(f.startswith("[error] C003 kernel_qdwconv")
+                      for f in e["cache"]["findings"])
+              and e["compile_events"] == COLDSTART_BUCKETS
+              and e["cache_events"]["hit"] == 0, f"corrupt {key}: {e}")
+    check(len(missed) == 1, f"corrupt boot: misses on {missed}")
+    check(corrupt["libraries"]["loaded"]["qdwconv"]["source"] == "build",
+          f"corrupt boot: {corrupt['libraries']}")
+    check(healed, "the corrupt boot's store did not heal the library")
+    doc = {"phase": "coldstart", "models": list(COLDSTART_NAMES),
+           "max_batch": SERVING_MAX_BATCH, "routes": ["kernels", "compiled"],
+           "batches": list(COLDSTART_BATCHES),
+           "build_phase_nvcc": {"wall_s": build_wall_s,
+                                "per_source_s": nvcc_s},
+           "cold": _boot_summary(cold), "warm": _boot_summary(warm),
+           "corrupt": _boot_summary(corrupt),
+           "truncated": os.path.relpath(victim, root),
+           "truncated_listed_by": len(listing), "missed": missed,
+           "healed": healed,
+           "rows_warm_equal_cold": True, "rows_corrupt_equal_cold": True,
+           "telemetry_warm": warm["telemetry"]}
+    emit(doc)
+    return doc
+
+
+EXAMPLE_RUNS = (("torch_quickstart.py",), ("torch_person_detection.py",),
+                ("torch_serve_tinyml.py", "64"),
+                ("torch_serve_tinyml.py", "64", "--chaos"))
+EXAMPLE_MARKS = {
+    "torch_quickstart.py": "engines agree bit-exactly ✓",
+    "torch_person_detection.py": "engines agree ✓",
+    "torch_serve_tinyml.py":
+        "served rows are bit-identical to direct predict_q ✓"}
+
+
+def phase_examples() -> None:
+    """The three ``examples/torch_*.py`` CLIs on the card, each in its own
+    process (see the module docstring, 14)."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    runs = []
+    for args in EXAMPLE_RUNS:
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable,
+                               os.path.join(ROOT, "examples", args[0]),
+                               *args[1:]], cwd=ROOT, env=env,
+                              capture_output=True, text=True, timeout=600)
+        check(proc.returncode == 0, f"{' '.join(args)}: rc {proc.returncode}"
+                                    f": {proc.stderr[-3000:]}")
+        lines = proc.stdout.splitlines()
+        check(EXAMPLE_MARKS[args[0]] in lines
+              or any(EXAMPLE_MARKS[args[0]] in ln for ln in lines),
+              f"{' '.join(args)} did not print {EXAMPLE_MARKS[args[0]]!r}")
+        keep = [ln.strip() for ln in lines
+                if "✓" in ln or "median" in ln or "served (" in ln
+                or "resilience" in ln]
+        runs.append({"args": list(args), "rc": proc.returncode,
+                     "wall_s": round(time.perf_counter() - t0, 3),
+                     "lines": keep})
+    emit({"phase": "examples", "runs": runs})
+
+
+# ---------------------------------------------------------------------------
 # layer by layer
 # ---------------------------------------------------------------------------
 
@@ -1410,7 +1748,8 @@ def main() -> int:
 
     t0 = time.perf_counter()
     built = _build.build()
-    emit({"phase": "build", "wall_s": round(time.perf_counter() - t0, 3),
+    build_wall_s = round(time.perf_counter() - t0, 3)
+    emit({"phase": "build", "wall_s": build_wall_s,
           "sources": {n: {"seconds": round(r["seconds"], 3),
                           "ptxas": ptxas_report(r["log"])}
                       for n, r in built.items()}})
@@ -1616,6 +1955,9 @@ def main() -> int:
 
     phase_pool(qg)
     phase_audit()
+    phase_coldstart(build_wall_s, {n: round(r["seconds"], 3)
+                                   for n, r in built.items()})
+    phase_examples()
 
     # -- summary: per forward at bucket 1 (and 8) of the path each kernel is on
     keys = ("ms", "plain_ms", "bound_ms", "library_ms", "call_ms")
@@ -1658,4 +2000,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--boot"]:
+        sys.exit(boot_main(sys.argv[2:]))
     sys.exit(main())

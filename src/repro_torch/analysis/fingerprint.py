@@ -33,14 +33,15 @@ reference:
 * ``C003`` — entry corruption: a manifest entry's file is missing or its
   content digest does not match.
 * ``C004`` — environment mismatch: the cache was produced under a
-  different torch / CUDA version, device, compute capability or kernel
-  sources than this process runs.
+  different torch / CUDA version, device, compute capability, CUDA driver
+  or kernel sources than this process runs.
 * ``C005`` — audit cross-check failure: the manifest does not cover the
   reachable bucket set recorded in the audit document (or the audit's
   fingerprint disagrees).
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import hashlib
 import json
@@ -176,17 +177,22 @@ def environment_info(device="cuda") -> Dict[str, str]:
     executable is only valid under the same torch and CUDA versions, the
     same device and compute capability, and kernels built from the same
     sources, so the manifest records where it was produced and
-    :func:`verify_manifest` rejects a cache from anywhere else (C004)."""
+    :func:`verify_manifest` rejects a cache from anywhere else (C004). On
+    CUDA it also names the CUDA version the driver supports
+    (``cuDriverGetVersion``): a stored kernel library ran under that
+    driver when it was stored."""
     dev = torch.device(device)
-    if dev.type == "cuda":
-        name = torch.cuda.get_device_name(dev)
-        capability = "%d.%d" % torch.cuda.get_device_capability(dev)
-    else:
-        name, capability = dev.type, "none"
+    if dev.type != "cuda":
+        return {"torch": torch.__version__, "cuda": str(torch.version.cuda),
+                "device": dev.type, "capability": "none",
+                "kernels_sha256": kernel_sources_sha256()}
+    version = ctypes.c_int()
+    ctypes.CDLL("libcuda.so.1").cuDriverGetVersion(ctypes.byref(version))
     return {"torch": torch.__version__,
             "cuda": str(torch.version.cuda),
-            "device": name,
-            "capability": capability,
+            "device": torch.cuda.get_device_name(dev),
+            "capability": "%d.%d" % torch.cuda.get_device_capability(dev),
+            "driver": "%d.%d" % divmod(version.value // 10, 100),
             "kernels_sha256": kernel_sources_sha256()}
 
 
@@ -216,9 +222,8 @@ def build_manifest(plan: ExecutionPlan, warm_batch: int,
                    entries: Dict[str, str],
                    extra: Optional[dict] = None) -> dict:
     """The cache's self-description, written next to its stored entries.
-    ``entries`` maps entry name (``bucket_<n>`` / ``stage_<id>`` /
-    ``percall``) to the sha256 hex digest of the entry file's bytes. The
-    environment is that of the plan's device."""
+    ``entries`` maps entry name (``bucket_<n>`` / ``percall``) to the
+    sha256 hex digest of the entry file's bytes. The environment is that of the plan's device."""
     doc = {
         "version": 1,
         "fingerprint": plan_fingerprint(plan),
@@ -247,12 +252,16 @@ def verify_manifest(manifest: dict, plan: ExecutionPlan, warm_batch: int,
     2. coverage: the manifest's bucket set and staged-pad key set must
        include every key ``warmup_batched(warm_batch)`` would fill —
        derived independently by the no-retrace auditor (C002);
-    3. every required entry must exist in ``entries`` with, when
-       ``entry_bytes`` is supplied, a matching content digest (C003);
+    3. every required entry must exist in ``entries`` and, when
+       ``entry_bytes`` is supplied, every entry the table lists must be
+       there with a matching content digest (C003). Staging keys are
+       checked for coverage alone (C002): the port has no staged-pad
+       executable, a batch's bucket covers it;
     4. the optional ``audit`` document (the auditor's ``--json`` report)
-       must agree: its per-model ``retrace.reachable_buckets`` must be
-       covered and, when it carries a ``fingerprint``, it must match
-       (C005).
+       must agree: the reachable buckets (``retrace.reachable_buckets``) of
+       every entry on this manifest's route that names its model or
+       carries its fingerprint must be covered and, when the entry carries
+       a ``fingerprint``, it must match (C005).
 
     Returns ``(info, findings)`` in the auditor's house style; admission
     is ``info["ok"]``.
@@ -296,15 +305,14 @@ def verify_manifest(manifest: dict, plan: ExecutionPlan, warm_batch: int,
                 "partial cache"))
 
     entries = manifest.get("entries", {})
-    required = [f"bucket_{b}" for b in need_b] + \
-        [f"stage_{stage_key_id(k)}" for k in need_s]
+    required = [f"bucket_{b}" for b in need_b]
     for name in required:
-        digest = entries.get(name)
-        if digest is None:
+        if name not in entries:
             findings.append(Finding(
                 ERROR, "C003", name,
                 "required entry absent from the manifest's entry table"))
-        elif entry_bytes is not None:
+    if entry_bytes is not None:
+        for name, digest in entries.items():
             data = entry_bytes.get(name)
             if data is None:
                 findings.append(Finding(
@@ -322,7 +330,12 @@ def verify_manifest(manifest: dict, plan: ExecutionPlan, warm_batch: int,
         if isinstance(models, dict):
             models = [models]
         for m in models or ():
-            if m.get("model") != manifest.get("model"):
+            # an entry is about this cache when it names the manifest's
+            # model, or carries its plan's fingerprint: the auditor's CLI
+            # names a model by its registry name ("sine"), a manifest by
+            # its graph's ("sine_predictor_int8")
+            if m.get("model") != manifest.get("model") and \
+                    (got_fp is None or m.get("fingerprint") != got_fp):
                 continue
             # the audit carries one entry per (model, route); only the
             # entry for this manifest's route is comparable

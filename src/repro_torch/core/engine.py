@@ -27,6 +27,14 @@ device. Rows are bit-identical to batch-1 calls. ``predict_q_many`` chunks
 large batches on bucket boundaries; ``staged_infer`` is the serving
 flush's zero-allocation path.
 
+Persistence: ``warmup_batched(cache=...)`` consults a
+:class:`repro_torch.serve.aotcache.AotCache`. A CUDA graph cannot be
+stored, so a verified hit loads the kernel libraries and captures every
+recorded bucket again, each capture checked against its record
+(:meth:`CompiledModel.install_cached_executables`): no nvcc runs and no
+build is counted in ``compile_events``; every capture, cold or warm, is
+counted in ``capture_events``.
+
 Degradation chain: :meth:`CompiledModel.routes` lists the routes a model
 can serve, primary first (``"kernels"`` → ``"compiled"`` → ``"reference"``;
 serving's port maps the reference's ``"pallas"`` to ``"kernels"``), and
@@ -37,6 +45,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import json
 import threading
 from typing import Optional
 
@@ -289,12 +298,16 @@ class CompiledModel:
     interpreter's row loop holds ``_ref_lock`` alone. On CUDA every call of
     a captured graph holds the model's ``_replay_lock`` (see
     :class:`_GraphExecutable`), and so does every capture. The staging pool
-    checks out and returns buffer sets under ``_staging_lock``. Every build
-    is recorded twice: the monotone ``compile_events`` counter (after
-    warm-up it must not move on the serving path) and the typed
-    ``compile_log`` (``{"kind": "bucket", "cache": None, "bucket": b}`` or
-    ``{"kind": "percall", "cache": None}``, plus the kernel-wrapper calls
-    the graph holds, ``"launches"``, on CUDA).
+    checks out and returns buffer sets under ``_staging_lock``. Every
+    executable made is counted in the monotone ``capture_events`` (a
+    CUDA-graph capture on the card, the eager function bound on the CPU),
+    and logged in the typed ``compile_log`` (``{"kind": "bucket", "cache":
+    ..., "bucket": b}`` or ``{"kind": "percall", "cache": ...}``, plus the
+    kernel-wrapper calls the graph holds, ``"launches"``, on CUDA). A build
+    that no verified cache served also moves ``compile_events`` (``cache``
+    None, or ``"miss"`` inside a cache-backed warm-up); one made from a
+    cache record is logged ``"hit"`` and moves only ``capture_events`` and
+    ``cache_events``. After warm-up no counter moves on the serving path.
     """
 
     def __init__(self, g: G.Graph, use_kernels: bool = True,
@@ -325,10 +338,18 @@ class CompiledModel:
         # Monotone count of staging-buffer allocations: after warm-up it
         # must not move on the serving hot path.
         self.staging_events = 0
-        # Monotone count of executable builds (CUDA-graph captures on the
-        # card): after warm-up it must not move either.
+        # Monotone count of executable builds that no verified cache served:
+        # after warm-up it must not move either, and a warm boot leaves it 0.
         self.compile_events = 0
+        # Monotone count of executables made, cold or from a cache record
+        # (CUDA-graph captures on the card).
+        self.capture_events = 0
         self.compile_log: list = []
+        # persistent-cache interactions, the outcome of the last cache-backed
+        # warm-up, and the tag of builds inside a cache-backed cold warm-up
+        self.cache_events = {"hit": 0, "miss": 0, "store": 0}
+        self.last_cache_result = None
+        self._cache_mode: Optional[str] = None
 
     @property
     def graph(self) -> G.Graph:
@@ -355,12 +376,42 @@ class CompiledModel:
 
     # -- executables -------------------------------------------------------
     def _note_compile(self, kind: str, **extra) -> None:
-        """Record one executable build (caller holds ``_compile_lock``) and
-        make it visible to an active trace scope: a traced request paying a
-        build is what the serving warm-up promises never happens."""
+        """Record one executable build that no cache served (caller holds
+        ``_compile_lock``) and make it visible to an active trace scope: a
+        traced request paying a build is what the serving warm-up promises
+        never happens."""
+        cache = self._cache_mode
         self.compile_events += 1
-        self.compile_log.append({"kind": kind, "cache": None, **extra})
-        engine_event("compile", kind=kind, **extra)
+        if cache is not None:
+            self.cache_events[cache] += 1
+        self.compile_log.append({"kind": kind, "cache": cache, **extra})
+        attrs = {"cache": cache, **extra} if cache is not None else extra
+        engine_event("compile", kind=kind, **attrs)
+
+    def _note_cache_event(self, kind: str, cache: str, **extra) -> None:
+        """Record one persistent-cache interaction that is not a build (a
+        capture from a record, a store): ``compile_events`` does not
+        move."""
+        self.cache_events[cache] += 1
+        self.compile_log.append({"kind": kind, "cache": cache, **extra})
+        engine_event("compile_cache", kind=kind, cache=cache, **extra)
+
+    def _make_executable(self, bucket: Optional[int]):
+        """The per-call executable (``bucket`` None) or ``bucket``'s: on
+        CUDA the forward captured as a CUDA graph, on the CPU the eager
+        function. Counted in ``capture_events`` (caller holds
+        ``_compile_lock``)."""
+        self.capture_events += 1
+        if self.device.type == "cuda":
+            if bucket is None:
+                return self._capture(self._fn, ())
+            return self._capture(self._batched_fn, (bucket,))
+        return self._fn if bucket is None else _EagerBucket(self._batched_fn)
+
+    @staticmethod
+    def _launch_attrs(exe) -> dict:
+        return ({"launches": exe.launches}
+                if isinstance(exe, _GraphExecutable) else {})
 
     def _capture(self, fn, lead: tuple) -> _GraphExecutable:
         """Capture ``fn`` over static inputs of shape ``lead + t.shape`` into
@@ -385,12 +436,8 @@ class CompiledModel:
             return exe
         with self._compile_lock:
             if self._percall is None:
-                if self.device.type == "cuda":
-                    exe = self._capture(self._fn, ())
-                    self._note_compile("percall", launches=exe.launches)
-                else:
-                    exe = self._fn
-                    self._note_compile("percall")
+                exe = self._make_executable(None)
+                self._note_compile("percall", **self._launch_attrs(exe))
                 self._percall = exe
             return self._percall
 
@@ -417,14 +464,9 @@ class CompiledModel:
             exe = self._buckets.get(bucket)
             if exe is not None:
                 return exe  # built while we waited
-            if self.device.type == "cuda":
-                exe = self._capture(self._batched_fn, (bucket,))
-                self._buckets[bucket] = exe
-                self._note_compile("bucket", bucket=bucket,
-                                   launches=exe.launches)
-            else:
-                exe = self._buckets[bucket] = _EagerBucket(self._batched_fn)
-                self._note_compile("bucket", bucket=bucket)
+            exe = self._buckets[bucket] = self._make_executable(bucket)
+            self._note_compile("bucket", bucket=bucket,
+                               **self._launch_attrs(exe))
         return exe
 
     def bucket_sizes(self) -> tuple:
@@ -436,6 +478,88 @@ class CompiledModel:
         """The built executable of ``bucket`` (KeyError when cold)."""
         with self._compile_lock:
             return self._buckets[bucket]
+
+    def cached_stage_pads(self) -> dict:
+        """Always ``{}``: the port has no staged-pad executable. A batch's
+        bucket fill is the zero rows of its staging buffer and its entry
+        lane pad runs inside its bucket's executable, so nothing of it is
+        stored apart from the bucket (``staged_pad_keys`` lists the keys
+        the built buckets cover)."""
+        return {}
+
+    # -- persistent-cache hooks (repro_torch.serve.aotcache) ---------------
+    def _record(self, exe, bucket: Optional[int]) -> dict:
+        """What a capture record holds for ``exe``: route, device, input
+        and output shapes and dtypes, and on CUDA the kernel-wrapper calls
+        the graph holds. On the CPU the shapes are the graph's, which the
+        eager function returns by construction."""
+        g = self.graph
+        lead = () if bucket is None else (bucket,)
+
+        def specs(tids):
+            return [[list(lead + tuple(g.tensor(t).shape)), g.tensor(t).dtype]
+                    for t in tids]
+
+        rec = {"kind": "percall" if bucket is None else "bucket",
+               "bucket": bucket, "route": self.routes()[0],
+               "device": self.device.type,
+               "inputs": specs(g.inputs), "outputs": specs(g.outputs)}
+        if isinstance(exe, _GraphExecutable):
+            def tensors(ts):
+                return [[list(t.shape), str(t.dtype).removeprefix("torch.")]
+                        for t in ts]
+            rec.update(inputs=tensors(exe.inputs), outputs=tensors(exe.outputs),
+                       launches=dict(sorted(exe.launches.items())))
+        return rec
+
+    def capture_record(self, bucket: Optional[int] = None) -> dict:
+        """The capture record of ``bucket``'s executable, or of the
+        per-call one when ``bucket`` is None (KeyError / ValueError when it
+        is not built) — what the cache stores in place of a graph."""
+        exe = self.cached_bucket(bucket) if bucket is not None \
+            else self.cached_percall()
+        if exe is None:
+            raise ValueError("the per-call executable is not built")
+        return self._record(exe, bucket)
+
+    def _check_record(self, record: dict, exe, bucket: Optional[int]) -> None:
+        got = json.loads(json.dumps(self._record(exe, bucket)))
+        if got != record:
+            diff = sorted(k for k in set(got) | set(record)
+                          if got.get(k) != record.get(k))
+            raise ValueError(f"{got['kind']} {bucket}: the capture differs "
+                             f"from its record in {diff}")
+
+    def install_cached_executables(self, buckets: dict, *,
+                                   percall=None) -> int:
+        """The warm boot's install step, once the cache has loaded the
+        kernel libraries (no nvcc): make the executable of every bucket in
+        ``buckets`` (bucket -> capture record) not yet built, and the
+        per-call one when ``percall`` (its record) is given, and check each
+        against its record. All or nothing: a failed capture or a capture
+        unlike its record raises, and the model keeps none of them. Each
+        executable kept is logged as a ``"hit"`` and moves
+        ``capture_events``, never ``compile_events``. Returns the number
+        kept."""
+        with self._compile_lock:
+            made = {}
+            for b, rec in sorted(buckets.items()):
+                if b not in self._buckets:
+                    made[b] = self._make_executable(b)
+                    self._check_record(rec, made[b], b)
+            pc = None
+            if percall is not None and self._percall is None:
+                pc = self._make_executable(None)
+                self._check_record(percall, pc, None)
+            for b, exe in made.items():
+                self._buckets[b] = exe
+                self._note_cache_event("bucket", "hit", bucket=b,
+                                       **self._launch_attrs(exe))
+            if pc is not None:
+                self._percall = pc
+                self._note_cache_event("percall", "hit",
+                                       **self._launch_attrs(pc))
+            return len(made) + (pc is not None)
 
     def _entry_widths(self, tid, batch: int) -> tuple:
         """Per-dimension (0, pad) widths that stage one batched input: the
@@ -488,19 +612,48 @@ class CompiledModel:
                     int(torch.cuda.memory_reserved(self.device)),
                 "captures": captures}
 
-    def warmup_batched(self, max_batch: int) -> "CompiledModel":
+    def warmup_batched(self, max_batch: int, *,
+                       cache=None) -> "CompiledModel":
         """Ahead-of-serving warm-up: build every power-of-two bucket up to
         ``bucket_for(max_batch)`` (the reference's rule; the batcher passes
         ``bucket_floor(max_batch)``) and fill each bucket's staging pool to
         its cap. After this no batch of at most ``max_batch`` rows builds
         anything at request time, and up to ``_staging_cap`` flushes of one
         bucket in flight at once (an off-loop executor's workers) allocate
-        nothing."""
+        nothing.
+
+        ``cache`` (a :class:`repro_torch.serve.aotcache.AotCache`) makes it
+        load-or-build-and-store, as in the reference: a verified hit makes
+        every bucket not yet built from its record (``compile_events``
+        stays put); a miss builds those (logged ``"miss"``) and stores
+        every bucket, built before or now. The outcome lands in
+        ``last_cache_result`` (after a miss: the store's, with the miss's
+        reason and findings).
+
+        Builds run one after another: the reference's ``parallel`` /
+        ``workers`` thread pool is not ported, since builds take the
+        model's compile lock one at a time (captures share one pool and
+        stream). Racing warm-ups still build each bucket once."""
         top = bucket_for(max_batch)
-        b = 1
-        while b <= top:
-            self.compile_batched(b)
-            b *= 2
+        buckets = [1 << i for i in range(top.bit_length())]
+        if cache is not None:
+            miss = self.last_cache_result = cache.load(self, max_batch)
+            if miss.hit:
+                self._warm_staging(top)
+                return self
+            self._cache_mode = "miss"  # tag the cold builds below
+        try:
+            for b in buckets:
+                self.compile_batched(b)
+        finally:
+            self._cache_mode = None
+        if cache is not None:
+            stored = cache.store(self, max_batch)
+            # the boot's outcome keeps why the load missed
+            self.last_cache_result = dataclasses.replace(
+                stored, reason=f"{miss.reason}; {stored.reason}",
+                findings=miss.findings)
+            self._note_cache_event("manifest", "store", count=stored.stored)
         self._warm_staging(top)
         return self
 
@@ -718,15 +871,17 @@ class CompiledModel:
             return self._predict_q_reference(inputs)
         raise ValueError(f"unknown route {route!r}; available: {names}")
 
-    def warmup_routes(self, max_batch: int) -> "CompiledModel":
+    def warmup_routes(self, max_batch: int, *, cache=None) -> "CompiledModel":
         """Warm every degradation route before serving: the primary bucket
         executables (``warmup_batched``), the compiled fallback's buckets
         (when the primary is the kernel route; on the card they are
         captured too), and the reference interpreter's arena — so a breaker
-        trip degrades to a route that is already built."""
-        self.warmup_batched(max_batch)
+        trip degrades to a route that is already built. ``cache`` flows to
+        both engine routes; the fallback (``use_kernels`` off) has a
+        fingerprint, and so a cache entry, of its own."""
+        self.warmup_batched(max_batch, cache=cache)
         if self.use_kernels:
-            self._fallback_compiled().warmup_batched(max_batch)
+            self._fallback_compiled().warmup_batched(max_batch, cache=cache)
         self._reference_interp()
         return self
 

@@ -224,6 +224,24 @@ def graph_from_doc(doc: dict) -> Graph:
     return g
 
 
+def graph_to_doc(g: Graph) -> dict:
+    """The document ``repro.core.graph.save`` packs for ``g``: the inverse
+    of :func:`graph_from_doc`, with no msgpack needed to make it."""
+    def qp(q):
+        return None if q is None else {"scale": q.scale.tolist(),
+                                       "zero_point": q.zero_point.tolist(),
+                                       "axis": q.axis}
+    return {"name": g.name, "inputs": list(g.inputs),
+            "outputs": list(g.outputs),
+            "tensors": [{"name": t.name, "shape": list(t.shape),
+                         "dtype": t.dtype, "qparams": qp(t.qparams),
+                         "data": None if t.data is None else t.data.tobytes()}
+                        for t in g.tensors],
+            "ops": [{"op": o.op, "inputs": list(o.inputs),
+                     "outputs": list(o.outputs), "attrs": dict(o.attrs)}
+                    for o in g.ops]}
+
+
 def load(path: str) -> Graph:
     """Read a graph written by ``repro.core.graph.save``."""
     import msgpack  # not every machine that runs the port has it

@@ -4,7 +4,11 @@ Each ``csrc/<name>.cu`` compiles, on first use, into its own shared library
 with a plain C interface under ``build/repro_torch_kernels/`` at the root of
 the checkout. The file name carries a digest of the sources and flags, so an
 edited kernel is rebuilt and an unchanged one is reused. :func:`build` starts
-one nvcc per source, all at once. Nothing here runs at import time.
+one nvcc per source, all at once. :func:`install` loads a stored copy of a
+library (the executable cache's, ``repro_torch.serve.aotcache``) once
+:func:`check` holds it against the same digest, so a process can run every kernel
+without nvcc; :func:`libraries` says where each loaded library came from
+and how long this process spent in nvcc. Nothing here runs at import time.
 """
 from __future__ import annotations
 
@@ -25,6 +29,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 SOURCES = ("qmatmul", "qdwconv", "paged_qmatmul", "fmatmul", "probe")
 
 _LIBS: dict = {}  # name -> loaded ctypes library (one per process)
+_ORIGIN: dict = {}  # name -> {"path", "source": "build" | "cache"}
+_NVCC: dict = {}  # name -> seconds of the nvcc this process ran for it
 
 
 def _nvcc() -> str:
@@ -71,8 +77,9 @@ def build(names=SOURCES) -> dict:
             continue
         target.with_suffix(".log").write_text(log)
         os.replace(tmp, target)  # atomic: a reader never sees half a library
-        result[name] = {"path": target, "seconds": time.perf_counter() - t0,
-                        "log": log}
+        seconds = time.perf_counter() - t0
+        _NVCC[name] = _NVCC.get(name, 0.0) + seconds
+        result[name] = {"path": target, "seconds": seconds, "log": log}
     if failures:
         raise RuntimeError("\n".join(failures))
     return result
@@ -84,11 +91,63 @@ def function(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
     ``cudaGetLastError()`` after the launch)."""
     lib = _LIBS.get(name)
     if lib is None:
-        lib = _LIBS[name] = ctypes.CDLL(str(build([name])[name]["path"]))
+        path = build([name])[name]["path"]
+        lib = _LIBS[name] = ctypes.CDLL(str(path))
+        _ORIGIN[name] = {"path": str(path), "source": "build"}
     fn = getattr(lib, symbol)
     fn.argtypes = list(argtypes)
     fn.restype = ctypes.c_int
     return fn
+
+
+def check(name: str, path, sha256: str) -> bool:
+    """Check that ``path`` is a stored copy of kernel library ``name``:
+    ``ValueError`` unless its file name is the one :func:`build` gives
+    ``name`` here (the digest over this checkout's sources and
+    ``NVCC_FLAGS``) and its bytes hash to ``sha256``; ``OSError`` when it
+    cannot be read. A library this process has loaded already is not read
+    again: one it built carries the same name, so the same sources and
+    flags, and one it installed must have had the same ``sha256``. Returns
+    whether ``name`` is loaded."""
+    path = Path(path)
+    want = _target(name).name
+    if path.name != want:
+        raise ValueError(f"{path.name} is not the {name} library these "
+                         f"sources and flags build ({want})")
+    if name in _LIBS:
+        had = _ORIGIN.get(name, {}).get("sha256")
+        if had is not None and had != sha256:
+            raise ValueError(f"{name}: the copy loaded here has sha256 "
+                             f"{had[:16]}..., not the recorded "
+                             f"{sha256[:16]}...")
+        return True
+    got = hashlib.sha256(path.read_bytes()).hexdigest()
+    if got != sha256:
+        raise ValueError(f"{path}: sha256 {got[:16]}... differs from the "
+                         f"recorded {sha256[:16]}...")
+    return False
+
+
+def install(name: str, path, sha256: str) -> bool:
+    """Load kernel library ``name`` from ``path``, a stored copy of a build
+    that passes :func:`check`, so that :func:`function` never runs nvcc for
+    it. Returns False, and leaves it as it is, when ``name`` is already
+    loaded in this process."""
+    if check(name, path, sha256):
+        return False
+    _LIBS[name] = ctypes.CDLL(str(path))
+    _ORIGIN[name] = {"path": str(path), "source": "cache", "sha256": sha256}
+    return True
+
+
+def libraries() -> dict:
+    """What this process has loaded and compiled: ``{"loaded": {name:
+    {"path", "source"}}, "nvcc_s": {name: seconds}}``. ``source`` is
+    ``"build"`` (the build directory, compiled here or reused) or
+    ``"cache"`` (:func:`install`, with the ``sha256`` it checked);
+    ``nvcc_s`` holds only the sources this process ran nvcc for."""
+    return {"loaded": {k: dict(v) for k, v in _ORIGIN.items()},
+            "nvcc_s": dict(_NVCC)}
 
 
 def launch_check(kernel: str, err: int) -> None:

@@ -107,8 +107,8 @@ def openmetrics(models_snap: Dict[str, dict],
         out.append(f"repro_compile_events_total {tracer.compile_events}")
     if engines:
         family("engine_compiles", "counter",
-               "bucket executables built per engine (CUDA-graph "
-               "captures on the card)")
+               "executables built per engine that no verified cache "
+               "served (CUDA-graph captures on the card)")
         for model, e in sorted(engines.items()):
             out.append(f'repro_engine_compiles_total{{model='
                        f'"{_esc(model)}"}} '

@@ -60,7 +60,10 @@ class ServingRegistry:
     default width when neither is passed); ``classes`` (optional ``{name:
     ClassPolicy}``) is the default priority-class table each batcher
     starts from — executor and classes can be overridden per model in
-    :meth:`register`.
+    :meth:`register`. ``cache`` (a
+    :class:`repro_torch.serve.aotcache.AotCache`), or ``cache_dir`` (and
+    ``audit_path``) to build one, makes every warm-up load-or-build-and-store
+    (a warm boot runs no nvcc and counts no build; see ``aotcache``).
     """
 
     def __init__(self, *, clock: Optional[Clock] = None, max_batch: int = 32,
@@ -70,12 +73,6 @@ class ServingRegistry:
                  classes: Optional[dict] = None, tracer=None,
                  cache=None, cache_dir: Optional[str] = None,
                  audit_path: Optional[str] = None):
-        if cache is not None or cache_dir is not None \
-                or audit_path is not None:
-            raise NotImplementedError(
-                "the persistent executable cache (cache=, cache_dir=, "
-                "audit_path=) is not ported yet: ROADMAP Queue 1 item 4, the "
-                "executable cache")
         self.clock = clock or Clock()
         if executor is None and executor_workers is not None:
             # convenience: size the shared off-loop pool without importing
@@ -86,9 +83,20 @@ class ServingRegistry:
         self.executor = executor
         # one repro_torch.obs.Tracer shared by every batcher (None = off)
         self.tracer = tracer
+        if cache is None and cache_dir is not None:
+            # a directory is enough to opt the whole registry into
+            # persistent boots
+            from .aotcache import AotCache
+            cache = AotCache(cache_dir, audit_path=audit_path)
+        self.cache = cache
+        if cache is not None:
+            # the kernel route probes the card while a model's plan is
+            # built, before its entry can be found: load the stored
+            # libraries first, so that a warm boot runs no nvcc
+            cache.install_libraries()
         self._defaults = dict(max_batch=max_batch, max_delay_s=max_delay_s,
                               max_queue=max_queue, classes=classes,
-                              tracer=tracer)
+                              tracer=tracer, cache=cache)
         self._entries: dict = {}
         self._started = False
         self._stopped = False
@@ -99,7 +107,7 @@ class ServingRegistry:
         """Admit ``model`` (an int8 ``CompiledModel``) under ``name``.
         ``overrides`` replace the registry-level batcher defaults
         (``max_batch`` / ``max_delay_s`` / ``max_queue`` / ``classes`` /
-        ``executor`` / ``tracer``) for this model."""
+        ``executor`` / ``tracer`` / ``cache``) for this model."""
         if name in self._entries:
             raise ValueError(f"model {name!r} already registered")
         kw = {**self._defaults, "executor": self.executor, **overrides}
@@ -223,24 +231,35 @@ class ServingRegistry:
 
     def engines(self) -> dict:
         """Per-model build accounting straight off the engines:
-        ``compile_events`` (bucket executables built: CUDA-graph captures
-        on the card), the typed ``compile_log`` tail, and the hit/miss/store
-        ``cache_events`` split (all zero until the persistent cache is
-        ported). Duck-typed stand-ins without the counters report empty."""
+        ``compile_events`` (executables built that no verified cache served
+        — zero after a warm boot), ``capture_events`` (every executable
+        made, cold or from a cache record: CUDA-graph captures on the
+        card), the typed ``compile_log`` tail, and the hit/miss/store
+        ``cache_events`` split. Duck-typed stand-ins without the counters
+        report empty."""
         out = {}
         for e in self._entries.values():
             m = e.model
             out[e.name] = {
                 "compile_events": getattr(m, "compile_events", 0),
+                "capture_events": getattr(m, "capture_events", 0),
                 "cache_events": dict(getattr(m, "cache_events", {}) or {}),
                 "compile_log": list(getattr(m, "compile_log", ()) or ())[-32:],
             }
         return out
 
     def cache_status(self) -> Optional[dict]:
-        """The registry-level cache's counters: ``None``, since the
-        persistent executable cache is not ported yet."""
-        return None
+        """The registry-level cache's counters plus each model's boot
+        outcome (``None`` when no cache is configured)."""
+        if self.cache is None:
+            return None
+        status = dict(self.cache.stats())
+        boots = {}
+        for e in self._entries.values():
+            res = getattr(e.model, "last_cache_result", None)
+            boots[e.name] = res.to_dict() if res is not None else None
+        status["boots"] = boots
+        return status
 
     def openmetrics(self) -> str:
         """OpenMetrics text exposition of every model's metrics (plus the
@@ -275,8 +294,8 @@ def build_paper_registry(names=("sine", "speech", "person"), *,
     default the hand-written CUDA kernels on the card, each bucket captured
     as one CUDA graph at warm-up; ``device="cpu"`` runs the kernels' plain
     versions. ``registry_kw`` reaches :class:`ServingRegistry` — including
-    ``executor`` (shared off-loop dispatch) and ``classes`` (priority
-    table)."""
+    ``executor`` (shared off-loop dispatch), ``classes`` (priority table)
+    and ``cache_dir`` (the persistent executable cache)."""
     from repro_torch.configs.paper_models import PAPER_MODELS
     from repro_torch.core.quantize import quantize_graph
 

@@ -374,17 +374,18 @@ class MicroBatcher:
         warming ``bucket_for(max_batch)`` would build a top bucket no flush
         ever uses when ``max_batch`` is not a power of two.
 
-        ``cache`` (the persistent executable cache) is not ported yet and
-        raises ``NotImplementedError``."""
-        if cache is not None:
-            raise NotImplementedError(
-                "the persistent executable cache is not ported yet: "
-                "ROADMAP Queue 1 item 4, the executable cache")
+        ``cache`` (a :class:`repro_torch.serve.aotcache.AotCache`) turns the
+        warm-up into load-or-build-and-store: a verified hit boots the model
+        from the cache's records and libraries, with no build counted and no
+        nvcc run."""
         max_batch = kw.get("max_batch", 32)
         if warmup:
             # only the bucketed batch executables: the batcher always stacks
             # requests, so the unbatched path is never on its hot path
-            model.warmup_batched(bucket_floor(max_batch))
+            if cache is not None and hasattr(model, "warmup_batched"):
+                model.warmup_batched(bucket_floor(max_batch), cache=cache)
+            else:
+                model.warmup_batched(bucket_floor(max_batch))
         # route-selectable dispatch + output-validity guard, when the model
         # provides them (duck-typed stand-ins without exec_plan still work)
         routed, routes, validate = None, (), None

@@ -2,6 +2,8 @@
 version, and the compiled engine's kernel route against its CPU plain route.
 Port only (the card's machine has no JAX). Skips without a GPU; run there
 with ``python -m pytest -q -m cuda tests/test_torch_cuda.py``."""
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -379,3 +381,72 @@ def test_no_recapture_or_wrapper_call_after_warmup(gen):
                                       cm.predict_q_many(xs[:n]))
     assert (cm.compile_events, fb.compile_events, cm.staging_events,
             fb.staging_events, launch_counts()) == state
+
+
+@pytest.mark.parametrize("use_kernels", [True, False],
+                         ids=["kernels", "compiled"])
+def test_warm_boot_from_cache_checks_every_capture(gen, tmp_path, use_kernels):
+    """A warm boot in the same process: the cache carries person's capture
+    records and, on the kernel route, the libraries it launches (qmatmul,
+    qdwconv, the probe); the warm engine makes every graph again from its
+    record (no build counted, as many captures), each capture holding the
+    calls its record names, and serves the cold engine's rows."""
+    import json
+    from repro_torch.kernels import _build
+    from repro_torch.serve.aotcache import AotCache
+    cold, xs = _paper_engine("person", use_kernels)
+    cache = AotCache(str(tmp_path))
+    cold.compile()
+    cold.warmup_batched(4, cache=cache)
+    man = cache.manifest(cold.last_cache_result.fingerprint)
+    want_libs = {"qmatmul", "qdwconv", "probe"} if use_kernels else set()
+    assert set(man["libraries"]) == want_libs
+    for name, lib in man["libraries"].items():
+        assert lib["file"] == _build._target(name).name
+        assert os.path.exists(os.path.join(str(tmp_path), "lib", lib["file"]))
+    assert "driver" in man["environment"]
+    warm = type(cold)(cold.graph, use_kernels=use_kernels, device="cuda")
+    warm.warmup_batched(4, cache=cache)
+    assert warm.last_cache_result.hit, warm.last_cache_result
+    assert warm.compile_events == 0
+    assert warm.capture_events == cold.capture_events == 4
+    for entry in warm.compile_log:
+        key = "percall" if entry["kind"] == "percall" \
+            else f"bucket_{entry['bucket']}"
+        with open(f"{cache.dir_for(man['fingerprint'])}/{key}.json") as f:
+            assert entry["launches"] == json.load(f)["launches"]
+        assert entry["cache"] == "hit"
+    for n in (1, 3, 4):
+        np.testing.assert_array_equal(warm.predict_q_many(xs[:n]),
+                                      cold.predict_q_many(xs[:n]))
+    np.testing.assert_array_equal(warm.predict_q(xs[0]), cold.predict_q(xs[0]))
+    assert warm.compile_events == 0 and warm.capture_events == 4
+
+
+def test_record_with_other_launches_is_a_miss(gen, tmp_path):
+    """A record whose launches differ from what the capture holds (its
+    digest made to agree) fails the install step: a miss naming the
+    launches, nothing kept, and a cold boot that stores a good copy."""
+    import hashlib
+    import json
+    from repro_torch.serve.aotcache import AotCache
+    cold, xs = _paper_engine("sine")
+    cache = AotCache(str(tmp_path))
+    cold.warmup_batched(2, cache=cache)
+    fp = cold.last_cache_result.fingerprint
+    path = f"{cache.dir_for(fp)}/bucket_2.json"
+    rec = json.loads(open(path).read())
+    rec["launches"]["qmatmul"] += 1
+    data = json.dumps(rec).encode()
+    open(path, "wb").write(data)
+    man = cache.manifest(fp)
+    man["entries"]["bucket_2"] = hashlib.sha256(data).hexdigest()
+    open(cache.manifest_path(fp), "w").write(json.dumps(man))
+    warm = type(cold)(cold.graph, device="cuda")
+    warm.warmup_batched(2, cache=cache)
+    res = warm.last_cache_result
+    assert not res.hit and "['launches']" in res.reason, res
+    assert warm.cache_events["hit"] == 0 and warm.compile_events == 2
+    np.testing.assert_array_equal(warm.predict_q_many(xs[:2]),
+                                  cold.predict_q_many(xs[:2]))
+    assert cache.verify(type(cold)(cold.graph, device="cuda"), 2).hit

@@ -1,0 +1,61 @@
+"""The port's example CLIs (``examples/torch_*.py``), each run with
+``--device cpu`` in a subprocess, as a user runs them: exit 0 and the
+lines their JAX twins print, the "✓" lines among them. On the card
+``chip_smoke.py``'s ``examples`` phase runs them."""
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+EXAMPLES = ROOT / "examples"
+
+
+def _run(args, code=None):
+    cmd = ([sys.executable, "-c", code] if code is not None
+           else [sys.executable, str(EXAMPLES / args[0]), *args[1:]])
+    out = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                         timeout=120,
+                         env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    assert out.returncode == 0, out.stderr[-4000:]
+    return out.stdout
+
+
+def test_quickstart():
+    out = _run(["torch_quickstart.py", "--device", "cpu"])
+    assert "engines agree bit-exactly ✓" in out
+    for head in ("quantized: 6 ops", "interpreter:", "compiled:", "kernels:",
+                 "weights          :", "interpreter arena:",
+                 "compiled peak    :", "folded constants :"):
+        assert head in out, (head, out)
+
+
+def test_person_detection():
+    """Full-width person at 96×96 on both engines, bit for bit; the timing
+    repetitions cut through the module's constant."""
+    code = ("import sys\n"
+            f"sys.path.insert(0, {str(EXAMPLES)!r})\n"
+            "import torch_person_detection as ex\n"
+            "ex.TIMING_REPS = 3\n"
+            "ex.main('cpu')\n")
+    out = _run(None, code=code)
+    assert "31 operator layers" in out
+    assert "engines agree ✓" in out
+    for name in ("interpreter", "compiled"):
+        assert f"  {name:12s} median" in out, out
+
+
+@pytest.mark.parametrize("chaos", [False, True], ids=["healthy", "chaos"])
+def test_serve_tinyml(chaos):
+    """A small burst at sine and speech; with ``--chaos`` behind seeded
+    faults (on the CPU the kernels' plain versions are slow enough that
+    SLO deadlines fail some requests: what is checked is the report and
+    the served-rows check)."""
+    out = _run(["torch_serve_tinyml.py", "48", "--device", "cpu"]
+               + (["--chaos"] if chaos else []))
+    assert "/48 served" in out
+    assert "[sine]" in out and "[speech]" in out
+    assert ("resilience       injected=" in out) is chaos
+    assert "served rows are bit-identical to direct predict_q ✓" in out

@@ -64,6 +64,21 @@ def test_graph_from_doc_reads_jax_saved_graph(name, tmp_path):
     assert all(not isinstance(v, list) for o in pg.ops for v in o.attrs.values())
 
 
+@pytest.mark.parametrize("name", ["sine", "speech"])
+def test_graph_to_doc_is_what_the_jax_package_saves(name, tmp_path):
+    """``graph_to_doc`` makes the document ``repro.core.graph.save`` packs,
+    byte for byte once packed, and ``graph_from_doc`` reads it back."""
+    rng = np.random.default_rng(4)
+    jq = j_quantize(JM.PAPER_MODELS[name](),
+                    [rng.normal(0, 1, MODELS[name]).astype("f")
+                     for _ in range(2)])
+    pg = carry(jq, tmp_path)
+    doc = TG.graph_to_doc(pg)
+    assert msgpack.packb(doc, use_bin_type=True) == \
+        (tmp_path / "g.msgpack").read_bytes()
+    _assert_same_graph(TG.graph_from_doc(doc), jq)
+
+
 def test_graph_from_doc_rejects_a_broken_graph(tmp_path):
     jg = JM.build_sine()
     JG.save(jg, str(tmp_path / "g.msgpack"))

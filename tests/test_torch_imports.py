@@ -1,5 +1,6 @@
 """The PyTorch port stands alone: no module of ``repro_torch`` (and not
-``chip_smoke.py``) imports JAX or the JAX package."""
+``chip_smoke.py`` or an ``examples/torch_*.py``) imports JAX or the JAX
+package."""
 import os
 import pathlib
 import re
@@ -74,7 +75,8 @@ _FORBIDDEN = re.compile(
     re.M)
 
 
-@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+                         + sorted((ROOT / "examples").glob("torch_*.py")),
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_source_has_no_jax_or_repro_import(path):
     hits = _FORBIDDEN.findall(path.read_text())

@@ -429,13 +429,3 @@ def test_paper_registry_matches_reference(name):
     xs = _rows(tm.graph, 5, seed=4)
     _same_rows(tm.predict_q_many(xs, max_batch=4),
                jm.predict_q_many(xs, max_batch=4), name == "speech")
-
-
-@pytest.mark.parametrize("kw", [{"cache": object()}, {"cache_dir": "c"},
-                                {"audit_path": "a.json"}])
-def test_persistent_cache_is_not_ported(kw):
-    where = "Queue 1 item 4, the executable cache"
-    with pytest.raises(NotImplementedError, match=where):
-        t_registry.ServingRegistry(**kw)
-    with pytest.raises(NotImplementedError, match=where):
-        t_scheduler.MicroBatcher.for_model(object(), cache=kw)
