@@ -1,0 +1,58 @@
+"""Parameters and caches of the JAX package, given as trees of numpy arrays
+(``jax.tree.map(np.asarray, tree)``), carried into the port key for key,
+with every shape checked. This is how both packages compute the same thing
+in the parity tests."""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..core.device import resolve_device
+from .layers import tree_map
+from .model import Model, cache_shapes, param_specs
+
+
+def _tensor(a) -> torch.Tensor:
+    a = np.array(a)  # a copy: the port never writes a JAX buffer
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def _carry(want, got, path, shape_of):
+    """``got`` (numpy leaves) as tensors, its keys and shapes held to
+    ``want``."""
+    if isinstance(want, dict):
+        if not isinstance(got, dict) or set(got) != set(want):
+            raise ValueError(f"{path or '<root>'}: keys "
+                             f"{sorted(got) if isinstance(got, dict) else got}"
+                             f" != {sorted(want)}")
+        return {k: _carry(want[k], got[k], f"{path}.{k}".lstrip("."),
+                          shape_of) for k in want}
+    if isinstance(want, list):
+        if not isinstance(got, (list, tuple)) or len(got) != len(want):
+            raise ValueError(f"{path}: {len(want)} entries expected")
+        return [_carry(w, g, f"{path}.{i}", shape_of)
+                for i, (w, g) in enumerate(zip(want, got))]
+    t = _tensor(got)
+    if tuple(t.shape) != tuple(shape_of(want)):
+        raise ValueError(f"{path}: shape {tuple(t.shape)} != "
+                         f"{tuple(shape_of(want))}")
+    return t
+
+
+def params_from_reference(cfg, tree, device="cuda") -> Model:
+    """A :class:`Model` holding the reference's parameters ``tree``."""
+    dev = resolve_device(device)
+    max_seq = np.shape(tree["dec_pos"])[0] if "dec_pos" in tree else 4096
+    got = _carry(param_specs(cfg, max_seq=max_seq), tree, "",
+                 lambda spec: spec.shape)
+    return Model(cfg, got).to(dev)
+
+
+def cache_from_reference(cfg, tree, B, S, device="cuda"):
+    """The reference's cache ``tree`` (``init_cache(cfg, B, S)``'s layout)
+    as the port's cache."""
+    dev = resolve_device(device)
+    got = _carry(cache_shapes(cfg, B, S), tree, "", lambda sd: sd[0])
+    return tree_map(lambda t: t.to(dev), got)

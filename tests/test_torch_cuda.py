@@ -450,3 +450,44 @@ def test_record_with_other_launches_is_a_miss(gen, tmp_path):
     np.testing.assert_array_equal(warm.predict_q_many(xs[:2]),
                                   cold.predict_q_many(xs[:2]))
     assert cache.verify(type(cold)(cold.graph, device="cuda"), 2).hit
+
+
+def test_stablelm_depth2_card_matches_cpu(gen):
+    """stablelm-3b at its published widths, cut to two layers: the same
+    float32 weights, drawn on the CPU and copied to the card, give prefill
+    and eight teacher-forced decode logits within 1e-4 · max |logit| of the
+    CPU's, the same greedy token wherever the CPU's top-2 margin exceeds
+    1e-3, the cache written in place, and TF32 off."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import cut_depth
+    from repro_torch.models import model as M
+    from repro_torch.models.layers import tree_map
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = cut_depth(get_config("stablelm-3b"), 2)
+    cpu = M.init_params(cfg, 0, torch.float32, max_seq=64, device="cpu")
+    card = M.Model(cfg, tree_map(lambda t: t.detach().to("cuda"), cpu.tree()))
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (4, 16)).astype(np.int32)
+    caches = {d: M.init_cache(cfg, 4, 64, torch.float32, device=d)
+              for d in ("cpu", "cuda")}
+    ptrs = [t.data_ptr() for t in caches["cuda"]["layers"][0]["mixer"]
+            .values()]
+    with torch.no_grad():
+        want, _ = cpu("prefill", {"tokens": prompts}, caches["cpu"])
+        got, _ = card("prefill", {"tokens": prompts}, caches["cuda"])
+        for step in range(9):
+            want, got = want[:, -1], got[:, -1].cpu()
+            scale = float(want.abs().max())
+            assert float((got - want).abs().max()) <= 1e-4 * scale, step
+            top2 = want.topk(2, -1).values
+            sure = (top2[:, 0] - top2[:, 1]) > 1e-3
+            tok = want.argmax(-1)
+            assert torch.equal(got.argmax(-1)[sure], tok[sure]), step
+            if step == 8:
+                break
+            want, _ = cpu("decode_step", tok[:, None], caches["cpu"],
+                          16 + step)
+            got, _ = card("decode_step", tok[:, None].cuda(), caches["cuda"],
+                          16 + step)
+    assert [t.data_ptr() for t in caches["cuda"]["layers"][0]["mixer"]
+            .values()] == ptrs

@@ -30,7 +30,7 @@ def test_every_module_imports_without_jax_or_repro():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "", f"forbidden modules loaded: {out.stdout}"
-    assert len(MODULES) >= 19, MODULES
+    assert len(MODULES) >= 69, MODULES
 
 
 @pytest.mark.parametrize("module", [
@@ -52,12 +52,15 @@ def test_paged_route_modules_import_alone(module):
 
 @pytest.mark.parametrize("modules", [
     ("repro_torch.serve", "repro_torch.obs"), ("repro_torch.serve.registry",),
-    ("repro_torch.serve.resilience",), ("repro_torch.obs.__main__",)],
+    ("repro_torch.serve.resilience",), ("repro_torch.obs.__main__",),
+    ("repro_torch.models.model",), ("repro_torch.serve.engine",),
+    ("repro_torch.launch.serve",)],
     ids=lambda m: "+".join(m))
 def test_serving_modules_import_alone(modules):
-    """The serving stack and observability, imported first and alone, load
-    neither JAX nor the JAX package (the scheduler and the resilience
-    layer run on the port's engine)."""
+    """The serving stack and observability, and the LLM serving path
+    (model, session, launcher), imported first and alone, load neither JAX
+    nor the JAX package (the scheduler and the resilience layer run on the
+    port's engine)."""
     code = ("import importlib, sys\n"
             f"for m in {modules!r}:\n"
             "    importlib.import_module(m)\n"
