@@ -4,9 +4,9 @@
 
 Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
 (into ``build/repro_torch_kernels/``), then drives four paths of the port
-at full width, with random weights from a seed, and the LLM serving path,
-which launches none of the kernels (its products are PyTorch matmuls, as
-the reference's are XLA einsums). An engine call is a
+at full width, with random weights from a seed, and the LLM serving and
+training paths, which launch none of the kernels (their products are
+PyTorch matmuls, as the reference's are XLA einsums). An engine call is a
 CUDA-graph replay: the first one-sample ``predict_q`` captures the per-call
 forward, the first call of a bucket its batched forward; a capture runs the
 forward once eagerly and then captures it (two forwards' kernel-wrapper
@@ -127,9 +127,10 @@ inside the graph.
               staging, store, load and library installs, beside the
               ``build`` phase's nvcc seconds;
 14. examples — ``examples/torch_quickstart.py``,
-              ``torch_person_detection.py`` and ``torch_serve_tinyml.py 64``
-              (and ``--chaos``) on the card, each in its own process: exit
-              0 and their "✓" lines;
+              ``torch_person_detection.py``, ``torch_serve_tinyml.py 64``
+              (and ``--chaos``) and ``torch_serve_llm.py`` (60 train steps,
+              then fp32 and int8 serving) on the card, each in its own
+              process: exit 0 and their "✓" (or agreement) lines;
 15. llm     — LLM serving (``repro_torch.models``, ``.serve.engine`` /
               ``.quantized``), in its own process (``chip_smoke.py
               --llm``), started before this process touches the card so
@@ -165,10 +166,33 @@ inside the graph.
               1e-4 x max |logit|, greedy tokens equal where the CPU's
               top-2 margin exceeds 1e-3; check 4: ``quantize_params``
               bit-equal on both devices).
+16. train   — training (``repro_torch.optim``, ``.train``, remat,
+              ``.launch.train``), in its own process (``chip_smoke.py
+              --train``), run after the ``llm`` process and before this
+              process touches the card; its lines are printed after
+              ``llm``. Gate 1: ``repro_torch.launch.train.main`` on
+              stablelm-3b at full width and depth in float32, B = 8 × 64
+              tokens (the launcher's defaults), 4 AdamW steps without remat
+              and 4 with it: every loss and grad norm finite, the remat
+              losses within 1e-5 of the plain ones. Measured: step ms (the
+              gradient and the update apart), tokens a second, the bound
+              (matmul FLOPs ÷ 67 TFLOP/s plus the optimizer's bytes ÷ 3.35
+              TB/s), peak ``max_memory_allocated`` beside the state's bytes
+              (params, grads, ``mu``, ``nu``), the busy share and kernels
+              of a profiled step, without and with remat and in bfloat16
+              (and one bfloat16 launcher run). Gate 2: stablelm-3b at depth
+              2, full width: one step on the card against the same step on
+              the CPU (loss within 1e-4, each gradient leaf within 1e-3 of
+              its largest |g|, parameters within 1e-5 but where Adam's step
+              can flip, 2·lr there). Gate 3: each ``reduced()`` config, the
+              same. Gate 4: a depth-2 checkpoint (params and AdamW state)
+              saved and restored on the card bit for bit, and mamba2
+              resumed from step 2 against four straight steps.
 
 Each phase prints one JSON line (the ``kernels`` phase lists every call it
-timed, ``explicit`` the seven explicit cases, and ``llm`` one line a config
-and one for checks 2 and 4 before its own); then the ``kernels``
+timed, ``explicit`` the seven explicit cases, ``llm`` one line a config
+and one for checks 2 and 4 before its own, ``train`` one line a gate and
+one for the measurements before its own); then the ``kernels``
 summary line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises, and the script exits
 non-zero without the last line.
@@ -1644,16 +1668,18 @@ def phase_coldstart(build_wall_s: float, nvcc_s: dict) -> dict:
 
 EXAMPLE_RUNS = (("torch_quickstart.py",), ("torch_person_detection.py",),
                 ("torch_serve_tinyml.py", "64"),
-                ("torch_serve_tinyml.py", "64", "--chaos"))
+                ("torch_serve_tinyml.py", "64", "--chaos"),
+                ("torch_serve_llm.py",))
 EXAMPLE_MARKS = {
     "torch_quickstart.py": "engines agree bit-exactly ✓",
     "torch_person_detection.py": "engines agree ✓",
     "torch_serve_tinyml.py":
-        "served rows are bit-identical to direct predict_q ✓"}
+        "served rows are bit-identical to direct predict_q ✓",
+    "torch_serve_llm.py": "int8 vs fp32 token agreement: "}
 
 
 def phase_examples() -> None:
-    """The three ``examples/torch_*.py`` CLIs on the card, each in its own
+    """The ``examples/torch_*.py`` CLIs on the card, each in its own
     process (see the module docstring, 14)."""
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     runs = []
@@ -1671,7 +1697,8 @@ def phase_examples() -> None:
               f"{' '.join(args)} did not print {EXAMPLE_MARKS[args[0]]!r}")
         keep = [ln.strip() for ln in lines
                 if "✓" in ln or "median" in ln or "served (" in ln
-                or "resilience" in ln]
+                or "resilience" in ln or "train step" in ln
+                or "tok/s" in ln or "agreement" in ln]
         runs.append({"args": list(args), "rc": proc.returncode,
                      "wall_s": round(time.perf_counter() - t0, 3),
                      "lines": keep})
@@ -2099,6 +2126,383 @@ def phase_llm(lines, process_s) -> None:
 
 
 # ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH, TRAIN_STEPS = "stablelm-3b", 4
+TRAIN_B, TRAIN_T = 8, 64            # the launcher's defaults
+TRAIN_REMAT_TOL = 1e-5              # gate 1: remat losses against plain
+# gates 2 and 3, the CPU tests' tolerances: the loss; each gradient leaf
+# against its largest |g|; parameters after the update within PARAM_TOL
+# (plus PARAM_TOL of the value) beyond what the two devices' gradients
+# themselves move Adam's first step by (:func:`adam_direction`; up to 2·lr
+# where the step's sign is not fixed by the gradients' agreement)
+TRAIN_LOSS_TOL, TRAIN_GRAD_TOL, TRAIN_PARAM_TOL = 1e-4, 1e-3, 1e-5
+TRAIN_CPU_B, TRAIN_CPU_T = 2, 64    # gate 2's batch (the CPU takes it too)
+TRAIN_LR = 3e-3
+TRAIN_MEASURE_STEPS = 3
+
+
+def run_launcher(argv) -> dict:
+    """``repro_torch.launch.train.main(argv)`` on the card: its losses, the
+    grad norms of its log lines (``--log-every 1``), wall seconds and the
+    peak allocated bytes."""
+    import contextlib
+    import io
+    from repro_torch.launch import train
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        losses = train.main(list(argv) + ["--log-every", "1"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    lines = out.getvalue().splitlines()
+    gnorms = [float(ln.split("gnorm ")[1].split()[0]) for ln in lines
+              if ln.startswith("[train] step")]
+    check(len(losses) == len(gnorms) == TRAIN_STEPS,
+          f"launcher {argv}: {len(losses)} losses, {len(gnorms)} log lines")
+    check(all(math.isfinite(x) for x in losses + gnorms),
+          f"launcher {argv}: losses {losses}, grad norms {gnorms}")
+    return {"argv": list(argv), "losses": losses, "grad_norms": gnorms,
+            "wall_s": round(wall, 3), "lines": lines,
+            "max_memory_allocated": torch.cuda.max_memory_allocated()}
+
+
+def train_batch(cfg, B, T, step, seed=SEED):
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM, frontend_stub
+    batch = SyntheticLM(DataConfig(cfg.vocab_size, T, B, seed=seed)).batch(step)
+    batch.update(frontend_stub(cfg, B, np.random.default_rng(seed + step)))
+    return batch
+
+
+def train_work(cfg, model, B, T, remat) -> dict:
+    """What a step of ``model`` must do: matmul FLOPs (forward 2 per weight
+    and token in every stacked matrix and the head, plus QK^T and PV over
+    the T x T scores; backward twice the forward; remat one forward more),
+    the optimizer's bytes (params, moments read and written, the gradients
+    read twice: once for the global norm), the state's bytes."""
+    from repro_torch.models.layers import tree_leaves
+    tree = model.tree()
+    mm = sum(t.numel() for t in tree_leaves(tree["layers"]) if t.dim() >= 3)
+    mm += tree["lm_head"].numel()
+    n = sum(t.numel() for t in tree_leaves(tree))
+    size = tree["lm_head"].element_size()
+    attn = 4 * B * T * T * cfg.n_heads * cfg.head_dim * cfg.n_layers
+    fwd = 2 * B * T * mm + attn
+    flops = fwd * (4 if remat else 3)
+    opt_bytes = n * (2 * size + 2 * size + 4 * 4)  # p r/w, g twice, mu nu r/w
+    state = n * (2 * size + 8)                      # p, g, mu, nu
+    peak = FLOPS_PER_S["float32" if size == 4 else "bfloat16"]
+    return {"flops": flops, "flops_6nt": 6 * n * B * T, "opt_bytes": opt_bytes,
+            "state_bytes": state, "params": n,
+            "bound_ms": (flops / peak + opt_bytes / HBM_BYTES_PER_S) * 1e3,
+            "grad_bound_ms": flops / peak * 1e3,
+            "update_bound_ms": opt_bytes / HBM_BYTES_PER_S * 1e3}
+
+
+def train_measure(cfg, dtype, remat) -> dict:
+    """Step times of ``cfg`` on the card (host clock, each step synchronised;
+    the gradient and the update apart), a profiled step (busy share,
+    kernels a step, the top kernels), peak allocated bytes."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    from repro_torch.train.step import grads_of
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = M.trainable(M.init_params(cfg, SEED, dtype, max_seq=TRAIN_T,
+                                      device="cuda"))
+    opt = adamw.init(model)
+    ocfg = adamw.AdamWConfig(lr=TRAIN_LR, warmup_steps=1, total_steps=100)
+
+    def step(s):
+        t0 = time.perf_counter()
+        loss, _, grads = grads_of(cfg, model, train_batch(cfg, TRAIN_B,
+                                                          TRAIN_T, s),
+                                  remat=remat)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        _, _, m = adamw.update(ocfg, grads, opt, model)
+        del grads
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        check(math.isfinite(float(loss)) and math.isfinite(
+            float(m["grad_norm"])), f"{cfg.name}: step {s} not finite")
+        return (t1 - t0) * 1e3, (t2 - t1) * 1e3
+
+    step(0)  # warm-up: cuBLAS handles, the allocator's pool
+    times = [step(s) for s in range(1, 1 + TRAIN_MEASURE_STEPS)]
+    peak = torch.cuda.max_memory_allocated()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(TRAIN_MEASURE_STEPS + 1)
+        window_ms = (time.perf_counter() - t0) * 1e3
+    by_kernel, launches = device_ms_by_kernel(prof)
+    device_ms = sum(by_kernel.values())
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]
+    work = train_work(cfg, model, TRAIN_B, TRAIN_T, remat)
+    step_ms = statistics.median(g + u for g, u in times)
+    del model, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"dtype": str(dtype).replace("torch.", ""), "remat": remat,
+            "step_ms": step_ms,
+            "grad_ms": statistics.median(g for g, _ in times),
+            "update_ms": statistics.median(u for _, u in times),
+            "steps_ms": [round(g + u, 3) for g, u in times],
+            "tokens_per_s": TRAIN_B * TRAIN_T / step_ms * 1e3,
+            "max_memory_allocated": peak,
+            "profile": {"window_ms": window_ms, "device_ms": device_ms,
+                        "busy_share": device_ms / window_ms,
+                        "busy_share_unprofiled": device_ms / step_ms,
+                        "kernels": launches,
+                        "top_device_ms": [[k[:60], v] for k, v in top]},
+            **work}
+
+
+def _leafwise(cpu_tree, card_tree):
+    from repro_torch.train.checkpoint import _flatten
+    card = dict(_flatten(card_tree))
+    for k, a in _flatten(cpu_tree):
+        yield k, a.detach(), card[k].detach().cpu()
+
+
+def adam_direction(grads, eps=1e-8) -> dict:
+    """AdamW's first step of each leaf of ``grads``, over ``lr`` and before
+    decay: ``g s / (|g s| + eps)`` with ``s`` the clip scale (at step 1
+    ``mhat`` is ``g s`` and ``nhat`` its square), by path, on the host."""
+    from repro_torch.optim.adamw import global_norm
+    from repro_torch.train.checkpoint import _flatten
+    s = min(1.0, 1.0 / (float(global_norm(grads)) + 1e-9))
+    out = {}
+    for k, g in _flatten(grads):
+        gs = g.detach().cpu() * s
+        out[k] = gs / (gs.abs() + eps)
+    return out
+
+
+def train_card_vs_cpu(cfg, B, T, seed=SEED) -> dict:
+    """One step of ``cfg`` on the card against the same step on the CPU,
+    from the same float32 weights and batch: the loss, every gradient leaf
+    and the parameters after the update, at the CPU tests' tolerances
+    (``TRAIN_*``)."""
+    from repro_torch.models import model as M
+    from repro_torch.models.layers import tree_map
+    from repro_torch.optim import adamw
+    from repro_torch.train.step import grads_of
+    cpu = M.init_params(cfg, seed, torch.float32, max_seq=T, device="cpu")
+    card = M.trainable(M.Model(cfg, tree_map(lambda t: t.detach().to("cuda"),
+                                             cpu.tree())))
+    M.trainable(cpu)
+    batch = train_batch(cfg, B, T, 0, seed)
+    ocfg = adamw.AdamWConfig(lr=TRAIN_LR, warmup_steps=1, total_steps=4)
+    lc, _, g_cpu = grads_of(cfg, cpu, batch)
+    lg, _, g_card = grads_of(cfg, card, batch)
+    check(abs(float(lg) - float(lc)) <= TRAIN_LOSS_TOL,
+          f"{cfg.name}: card loss {float(lg)} vs CPU {float(lc)}")
+    grad_worst = 0.0
+    for k, a, b in _leafwise(g_cpu, g_card):
+        scale = float(a.abs().max())
+        err = float((a - b).abs().max())
+        check(torch.isfinite(b).all() and (err <= TRAIN_GRAD_TOL * scale
+                                           or err == 0.0),
+              f"{cfg.name}: grad {k} differs by {err} (max |g| {scale})")
+        grad_worst = max(grad_worst, err / scale if scale else 0.0)
+    dir_cpu, dir_card = adam_direction(g_cpu), adam_direction(g_card)
+    _, _, mc = adamw.update(ocfg, g_cpu, adamw.init(cpu), cpu)
+    _, _, mg = adamw.update(ocfg, g_card, adamw.init(card), card)
+    lr = float(mc["lr"])
+    gn = (float(mg["grad_norm"]), float(mc["grad_norm"]))
+    check(abs(gn[0] - gn[1]) <= 1e-4 * gn[1], f"{cfg.name}: grad norm {gn}")
+    excess, moved, n = 0.0, 0, 0
+    for k, a, b in _leafwise(cpu.tree(), card.tree()):
+        step_diff = lr * (dir_cpu.pop(k) - dir_card.pop(k)).abs()
+        d = (a - b).abs() - step_diff - TRAIN_PARAM_TOL * a.abs()
+        check(bool((d <= TRAIN_PARAM_TOL).all()),
+              f"{cfg.name}: parameter {k} after the step differs by "
+              f"{float(d.max())} beyond its gradients' step difference")
+        excess = max(excess, float(d.max()))
+        moved += int((step_diff > TRAIN_PARAM_TOL).sum())
+        n += a.numel()
+    out = {"arch": cfg.name, "layers": cfg.n_layers, "batch": [B, T],
+           "loss_card": float(lg), "loss_cpu": float(lc),
+           "loss_diff": abs(float(lg) - float(lc)),
+           "grad_worst_ratio": grad_worst, "grad_norm": gn,
+           "param_worst_excess": excess,
+           "step_moved_elements": moved, "elements": n}
+    del cpu, card, g_cpu, g_card
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_checkpoints() -> dict:
+    """Gate 4: a depth-2 stablelm-3b state (full width, after one step on
+    the card) saved and restored on the card bit for bit; mamba2 (reduced)
+    stopped at step 2, saved, restored into fresh tensors and continued
+    against four straight steps (the reference's resume test)."""
+    import shutil
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import cut_depth
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    from repro_torch.train import checkpoint as CKPT
+    from repro_torch.train.checkpoint import _flatten
+    from repro_torch.train.step import make_train_step
+    root = os.path.join(ROOT, "build", "train_ckpt")
+    shutil.rmtree(root, ignore_errors=True)
+    cfg = cut_depth(get_config(TRAIN_ARCH), 2)
+    model = M.trainable(M.init_params(cfg, SEED, torch.float32,
+                                      max_seq=TRAIN_T, device="cuda"))
+    opt = adamw.init(model)
+    step = make_train_step(cfg, adamw.AdamWConfig(lr=TRAIN_LR, warmup_steps=1))
+    step(model, opt, train_batch(cfg, TRAIN_CPU_B, TRAIN_T, 0))
+    path = CKPT.step_path(root, 1)
+    t0 = time.perf_counter()
+    CKPT.save({"params": model, "opt": opt}, path)
+    save_s = time.perf_counter() - t0
+    size = os.path.getsize(path)
+    fresh = M.init_params(cfg, SEED + 1, torch.float32, max_seq=TRAIN_T,
+                          device="cuda")
+    t0 = time.perf_counter()
+    got = CKPT.restore({"params": fresh.tree(), "opt": adamw.init(fresh)},
+                       path)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    want = dict(_flatten({"params": model, "opt": opt}))
+    leaves = 0
+    for k, t in _flatten(got):
+        check(t.device.type == "cuda" and t.dtype == want[k].dtype
+              and torch.equal(t, want[k]), f"checkpoint: {k} differs")
+        leaves += 1
+    check(CKPT.latest_step(root) == 1, "checkpoint: latest_step")
+    del model, opt, fresh, got, want
+
+    mcfg = get_config("mamba2-780m").reduced()
+    mstep = make_train_step(mcfg, adamw.AdamWConfig(lr=1e-3, warmup_steps=1,
+                                                    total_steps=4))
+
+    def fresh_state():
+        p = M.trainable(M.init_params(mcfg, SEED, torch.float32, max_seq=16,
+                                      device="cuda"))
+        return p, adamw.init(p)
+
+    def run(n0, n1, p, o):
+        for s in range(n0, n1):
+            p, o, _ = mstep(p, o, train_batch(mcfg, 2, 16, s))
+        return p, o
+
+    straight, _ = run(0, 4, *fresh_state())
+    mid_p, mid_o = run(0, 2, *fresh_state())
+    CKPT.save({"p": mid_p, "o": mid_o}, CKPT.step_path(root, 2))
+    new_p, new_o = fresh_state()
+    CKPT.restore({"p": new_p, "o": new_o}, CKPT.step_path(root, 2),
+                 inplace=True)
+    resumed, _ = run(2, 4, new_p, new_o)
+    resume_diff = max(float((a - b).detach().abs().max()) for (_, a), (_, b) in
+                      zip(_flatten(straight), _flatten(resumed)))
+    check(resume_diff <= 1e-6, f"resume vs continuous: {resume_diff}")
+    shutil.rmtree(root, ignore_errors=True)
+    return {"depth2_leaves_bit_equal": leaves, "depth2_file_bytes": size,
+            "save_s": round(save_s, 3), "restore_s": round(restore_s, 3),
+            "mamba2_resume_max_diff": resume_diff}
+
+
+def train_main() -> int:
+    """The ``train`` phase's own process (``chip_smoke.py --train``): gates
+    1-4 and the measurements; one JSON line each."""
+    if not torch.cuda.is_available():
+        print("chip_smoke --train: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.configs import get_config, list_configs
+    from repro_torch.launch.serve import cut_depth
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on")
+    free, total = torch.cuda.mem_get_info()
+
+    # gate 1: the launcher at full width and depth, without and with remat
+    argv = ["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS), "--lr",
+            str(TRAIN_LR), "--batch", str(TRAIN_B), "--seq", str(TRAIN_T)]
+    plain = run_launcher(argv)
+    remat = run_launcher(argv + ["--remat"])
+    diff = max(abs(a - b) for a, b in zip(plain["losses"], remat["losses"]))
+    check(diff <= TRAIN_REMAT_TOL,
+          f"remat losses {remat['losses']} vs plain {plain['losses']}")
+    emit({"phase": "train_launcher", "arch": TRAIN_ARCH,
+          "free_bytes_at_start": free, "card_bytes": total,
+          "plain": plain, "remat": remat, "remat_max_loss_diff": diff,
+          "remat_tol": TRAIN_REMAT_TOL})
+
+    # measurements: float32 without and with remat, and one bfloat16 run
+    cfg = get_config(TRAIN_ARCH)
+    rows = [train_measure(cfg, torch.float32, False),
+            train_measure(cfg, torch.float32, True)]
+    bf16 = run_launcher(argv + ["--dtype", "bfloat16"])
+    rows.append(train_measure(cfg, torch.bfloat16, False))
+    emit({"phase": "train_measure", "arch": TRAIN_ARCH, "batch": TRAIN_B,
+          "seq": TRAIN_T, "runs": rows,
+          "bf16_launcher": {k: bf16[k] for k in ("losses", "grad_norms",
+                                                  "wall_s",
+                                                  "max_memory_allocated")}})
+
+    # gate 2: depth 2 at full width against the CPU; gate 3: every reduced()
+    emit({"phase": "train_card_vs_cpu", **train_card_vs_cpu(
+        cut_depth(cfg, 2), TRAIN_CPU_B, TRAIN_CPU_T)})
+    reduced = [train_card_vs_cpu(no_drop(get_config(a).reduced()), 2, 16)
+               for a in list_configs()]
+    emit({"phase": "train_reduced", "configs": reduced})
+
+    # gate 4
+    emit({"phase": "train_checkpoint", **train_checkpoints()})
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 turned on")
+    return 0
+
+
+def run_train() -> tuple:
+    """The ``train`` phase's process (see the module docstring, 16), after
+    the ``llm`` process and before this process touches the card: (its
+    stdout lines, seconds)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--train"], cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+                 PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True"),
+        capture_output=True, text=True, timeout=900)
+    check(proc.returncode == 0, f"train: rc {proc.returncode}: "
+                                f"{proc.stdout[-2000:]}{proc.stderr[-3000:]}")
+    return proc.stdout.splitlines(), time.perf_counter() - t0
+
+
+def phase_train(lines, process_s) -> None:
+    """The lines of :func:`run_train`'s process, and the phase's summary."""
+    rows = {r["phase"]: r for r in (json.loads(ln) for ln in lines
+                                    if ln.startswith("{"))}
+    want = ("train_launcher", "train_measure", "train_card_vs_cpu",
+            "train_reduced", "train_checkpoint")
+    check(all(p in rows for p in want), f"train: phases {sorted(rows)}")
+    for p in want:
+        emit(rows[p])
+    f32 = rows["train_measure"]["runs"][0]
+    emit({"phase": "train", "step_ms": f32["step_ms"],
+          "bound_ms": f32["bound_ms"],
+          "tokens_per_s": f32["tokens_per_s"],
+          "max_memory_allocated": f32["max_memory_allocated"],
+          "state_bytes": f32["state_bytes"],
+          "remat_step_ms": rows["train_measure"]["runs"][1]["step_ms"],
+          "remat_max_loss_diff": rows["train_launcher"]["remat_max_loss_diff"],
+          "card_vs_cpu_loss_diff": rows["train_card_vs_cpu"]["loss_diff"],
+          "reduced_configs": len(rows["train_reduced"]["configs"]),
+          "checkpoint_leaves": rows["train_checkpoint"][
+              "depth2_leaves_bit_equal"],
+          "process_s": round(process_s, 3)})
+
+
+# ---------------------------------------------------------------------------
 # layer by layer
 # ---------------------------------------------------------------------------
 
@@ -2204,6 +2608,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.join(ROOT, "src"))
     llm_lines, llm_s = run_llm()
+    train_lines, train_s = run_train()
     from repro_torch.configs.paper_models import (PAPER_MODELS, build_person,
                                                   build_speech)
     from repro_torch.core.engine import CompiledModel, bucket_for
@@ -2427,6 +2832,7 @@ def main() -> int:
                                    for n, r in built.items()})
     phase_examples()
     phase_llm(llm_lines, llm_s)
+    phase_train(train_lines, train_s)
 
     # -- summary: per forward at bucket 1 (and 8) of the path each kernel is on
     keys = ("ms", "plain_ms", "bound_ms", "library_ms", "call_ms")
@@ -2473,4 +2879,6 @@ if __name__ == "__main__":
         sys.exit(boot_main(sys.argv[2:]))
     if sys.argv[1:2] == ["--llm"]:
         sys.exit(llm_main())
+    if sys.argv[1:2] == ["--train"]:
+        sys.exit(train_main())
     sys.exit(main())

@@ -1,7 +1,8 @@
-"""Parameters and caches of the JAX package, given as trees of numpy arrays
-(``jax.tree.map(np.asarray, tree)``), carried into the port key for key,
-with every shape checked. This is how both packages compute the same thing
-in the parity tests."""
+"""Parameters, caches and optimizer states of the JAX package, given as
+trees of numpy arrays (``jax.tree.map(np.asarray, tree)``), carried into
+the port key for key, with every shape checked, and the port's trees
+carried back (:func:`to_numpy`). This is how both packages compute the same
+thing in the parity tests, and start a step from the same state."""
 from __future__ import annotations
 
 import numpy as np
@@ -56,3 +57,38 @@ def cache_from_reference(cfg, tree, B, S, device="cuda"):
     dev = resolve_device(device)
     got = _carry(cache_shapes(cfg, B, S), tree, "", lambda sd: sd[0])
     return tree_map(lambda t: t.to(dev), got)
+
+
+def opt_state_from_reference(cfg, tree, device="cuda") -> dict:
+    """The reference's AdamW state (``repro.optim.adamw.init``'s layout:
+    ``mu`` and ``nu`` in the params' tree, float32, and an int32 ``step``)
+    as the port's (:func:`repro_torch.optim.adamw.init`)."""
+    dev = resolve_device(device)
+    max_seq = (np.shape(tree["mu"]["dec_pos"])[0] if "dec_pos" in tree["mu"]
+               else 4096)
+    specs = param_specs(cfg, max_seq=max_seq)
+    out = {k: tree_map(lambda t: t.to(dev),
+                       _carry(specs, tree[k], k, lambda spec: spec.shape))
+           for k in ("mu", "nu")}
+    step = np.asarray(tree["step"])
+    if step.shape != () or step.dtype != np.int32:
+        raise ValueError(f"step: {step.dtype} {step.shape}, want int32 ()")
+    out["step"] = torch.tensor(int(step), dtype=torch.int32, device=dev)
+    return out
+
+
+def to_numpy(tree):
+    """A tree of tensors (or a :class:`Model`) as the same tree of numpy
+    arrays on the host (copies), the way back into the reference; bfloat16
+    as ``ml_dtypes``' bfloat16, which the reference's JAX reads."""
+    if isinstance(tree, Model):
+        tree = tree.tree()
+
+    def leaf(t):
+        t = t.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            import ml_dtypes  # only where the reference runs
+            return np.array(t.view(torch.int16).numpy()).view(
+                ml_dtypes.bfloat16)
+        return np.array(t.numpy())  # a copy: JAX never reads a port buffer
+    return tree_map(leaf, tree)

@@ -57,6 +57,14 @@ def tree_map(fn, tree):
     return fn(tree)
 
 
+def tree_leaves(tree) -> list:
+    """The leaves of a tree of dicts and lists, in :func:`tree_map`'s
+    order (a tuple is a leaf)."""
+    out = []
+    tree_map(out.append, tree)
+    return out
+
+
 def mm(x, w):
     """``einsum("...d,df->...f", x, w)``; operands of two dtypes meet in the
     promoted one, as JAX promotes them."""

@@ -4,7 +4,7 @@ encoder (Whisper), decoder stack, LM head; the port of
 
   init_params(cfg, seed_or_generator, dtype, max_seq, device) -> Model
   init_cache(cfg, B, S, dtype, device)         -> decode cache tree
-  forward(cfg, params, batch)                  -> (logits, aux)
+  forward(cfg, params, batch, remat=False)     -> (logits, aux)
   prefill(cfg, params, batch, cache)           -> (last_logits, cache)
   decode_step(cfg, params, tokens, cache, pos) -> (logits, cache)
 
@@ -80,11 +80,11 @@ def _make(spec: Init, gen, device):
 
 class Params(nn.Module):
     """A tree of dicts (and lists) of tensors held as submodules and
-    ``nn.Parameter``s (``requires_grad=False``): ``state_dict()`` keys are
-    the reference's pytree paths joined by ``.``, e.g.
-    ``layers.0.mixer.wq``. :meth:`tree` gives the tree back, reading each
-    leaf through ``getattr`` so that ``torch.func.functional_call``'s
-    substitutes are what it returns."""
+    ``nn.Parameter``s (``requires_grad=False`` until :func:`trainable`):
+    ``state_dict()`` keys are the reference's pytree paths joined by
+    ``.``, e.g. ``layers.0.mixer.wq``. :meth:`tree` gives the tree back,
+    reading each leaf through ``getattr`` so that
+    ``torch.func.functional_call``'s substitutes are what it returns."""
 
     def __init__(self, tree: dict):
         super().__init__()
@@ -159,6 +159,17 @@ def init_cache(cfg, B, S, dtype=torch.bfloat16, device="cuda"):
                     cache_shapes(cfg, B, S, dtype))
 
 
+def trainable(params, flag: bool = True):
+    """``params`` (a :class:`Model` or a tree of tensors) with every leaf's
+    ``requires_grad`` set to ``flag``, in place; returns ``params``. A
+    model is drawn frozen, for serving; a train step differentiates only
+    leaves made trainable."""
+    if isinstance(params, nn.Module):
+        return params.requires_grad_(flag)
+    tree_map(lambda t: t.requires_grad_(flag), params)
+    return params
+
+
 def _tree(params):
     return params.tree() if isinstance(params, Params) else params
 
@@ -222,13 +233,15 @@ def _assemble_inputs(cfg, params, batch):
     return x, positions, memory, n_prefix
 
 
-def forward(cfg, params, batch):
+def forward(cfg, params, batch, remat=False):
     """Logits over every position (text positions only for a VLM: patch
-    positions are sliced off) and the MoE auxiliary loss."""
+    positions are sliced off) and the MoE auxiliary loss. With ``remat``
+    each period of the decoder stack recomputes its activations in the
+    backward pass (``apply_stack``)."""
     params = _tree(params)
     x, positions, memory, n_prefix = _assemble_inputs(cfg, params, batch)
     x, _, aux = apply_stack(cfg, _dec_pattern(cfg), params["layers"], x,
-                            positions, "train", memory=memory)
+                            positions, "train", memory=memory, remat=remat)
     x = apply_norm(cfg, params["final_norm"], x)
     if n_prefix:
         x = x[:, n_prefix:]

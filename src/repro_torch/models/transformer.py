@@ -3,13 +3,14 @@
 
 Parameters keep the reference's stacked layout: one entry per pattern
 position whose leaves have shape ``(n_periods, ...)``. The stack is a
-Python loop over periods; each period indexes its slice of the weights,
+Python loop over periods; each period takes its slice of the weights,
 and of the cache, whose slices are views, so a layer's in-place cache
 writes land in the stacked tensors.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from . import attention as attn
 from . import moe as moe_mod
@@ -105,16 +106,34 @@ def stack_cache_shapes(cfg, pattern, n_periods, B, S):
 
 
 def apply_stack(cfg, pattern, params, x, positions, mode, caches=None,
-                pos=None, memory=None, causal=True):
+                pos=None, memory=None, causal=True, remat=False):
     """Loop over periods. Returns (x, caches, aux); ``caches`` is the
-    argument, written in place."""
+    argument, written in place.
+
+    Each stacked weight is split into its periods once, by ``unbind``,
+    whose backward stacks the periods' gradients in one allocation (as the
+    reference scan's transpose does); indexing it once a period would add
+    a zero-filled gradient of the whole stack a period. With ``remat`` each
+    period runs under ``torch.utils.checkpoint`` (the reference's
+    ``jax.checkpoint`` of one scan step): its activations are recomputed in
+    the backward pass instead of kept."""
     n_periods = params[0]["norm1"]["scale"].shape[0]
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i in range(n_periods):
+    slices = [tree_map(lambda a: a.unbind(0), p) for p in params]
+
+    def period(i, x, aux):
         for j, ld in enumerate(pattern):
-            ps = tree_map(lambda a: a[i], params[j])
+            ps = tree_map(lambda t: t[i], slices[j])
             cs = tree_map(lambda a: a[i], caches[j]) if caches else None
             x, a = apply_layer(cfg, ld, ps, x, positions, mode, cs, pos,
                                memory, causal)
             aux = aux + a
+        return x, aux
+
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(n_periods):
+        if remat:
+            x, aux = checkpoint(period, i, x, aux, use_reentrant=False,
+                                preserve_rng_state=False)
+        else:
+            x, aux = period(i, x, aux)
     return x, caches, aux

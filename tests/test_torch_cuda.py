@@ -491,3 +491,71 @@ def test_stablelm_depth2_card_matches_cpu(gen):
                           16 + step)
     assert [t.data_ptr() for t in caches["cuda"]["layers"][0]["mixer"]
             .values()] == ptrs
+
+
+def _train_step_card_vs_cpu(cfg, B, T):
+    """One train step of ``cfg`` on the card and on the CPU from the same
+    float32 weights and batch, held at the CPU parity tests' tolerances:
+    the loss within 1e-4, each gradient leaf within 1e-3 of its largest
+    |g|, the parameters after the update within 1e-5 (plus 1e-5 of the
+    value) beyond the difference of the first AdamW steps the two devices'
+    gradients give, ``lr * g s / (|g s| + eps)`` (s the clip scale), which
+    is up to 2·lr where the gradients do not fix the step's sign. TF32 off
+    throughout."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM, frontend_stub
+    from repro_torch.models import model as M
+    from repro_torch.models.layers import tree_map
+    from repro_torch.optim import adamw
+    from repro_torch.train.checkpoint import _flatten
+    from repro_torch.train.step import grads_of
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cpu = M.init_params(cfg, 0, torch.float32, max_seq=T, device="cpu")
+    card = M.trainable(M.Model(cfg, tree_map(lambda t: t.detach().cuda(),
+                                             cpu.tree())))
+    M.trainable(cpu)
+    batch = SyntheticLM(DataConfig(cfg.vocab_size, T, B, seed=0)).batch(0)
+    batch.update(frontend_stub(cfg, B, np.random.default_rng(0)))
+    lc, _, gc = grads_of(cfg, cpu, batch)
+    lg, _, gg = grads_of(cfg, card, batch)
+    assert abs(float(lg) - float(lc)) <= 1e-4
+
+    def direction(grads):
+        s = min(1.0, 1.0 / (float(adamw.global_norm(grads)) + 1e-9))
+        return {k: (g.detach().cpu() * s) / ((g.detach().cpu() * s).abs()
+                                             + 1e-8)
+                for k, g in _flatten(grads)}
+
+    ggs = dict(_flatten(gg))
+    for k, a in _flatten(gc):
+        err = float((a - ggs[k].cpu()).abs().max())
+        assert err <= 1e-3 * float(a.abs().max()), k
+    dc, dg = direction(gc), direction(gg)
+    ocfg = adamw.AdamWConfig(lr=3e-3, warmup_steps=1, total_steps=4)
+    _, _, mc = adamw.update(ocfg, gc, adamw.init(cpu), cpu)
+    adamw.update(ocfg, gg, adamw.init(card), card)
+    lr = float(mc["lr"])
+    cards = dict(_flatten(card))
+    for k, a in _flatten(cpu):
+        d = (a.detach() - cards[k].detach().cpu()).abs() - 1e-5 * a.abs()
+        assert bool((d <= 1e-5 + lr * (dc[k] - dg[k]).abs()).all()), k
+
+
+def test_train_step_depth2_card_matches_cpu(gen):
+    """stablelm-3b at its published widths, cut to two layers."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import cut_depth
+    _train_step_card_vs_cpu(cut_depth(get_config("stablelm-3b"), 2), 2, 32)
+
+
+@pytest.mark.parametrize("arch", ["stablelm-3b", "mamba2-780m",
+                                  "jamba-v0.1-52b", "whisper-small"])
+def test_train_step_reduced_card_matches_cpu(gen, arch):
+    """``reduced()`` configs of four block families; MoE under a capacity no
+    token overflows."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config(arch).reduced()
+    if cfg.n_experts:
+        cfg = dataclasses.replace(
+            cfg, capacity_factor=cfg.n_experts / cfg.top_k + 1.0)
+    _train_step_card_vs_cpu(cfg, 2, 16)

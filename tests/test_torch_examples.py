@@ -13,12 +13,13 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 EXAMPLES = ROOT / "examples"
 
 
-def _run(args, code=None):
+def _run(args, code=None, env=()):
     cmd = ([sys.executable, "-c", code] if code is not None
            else [sys.executable, str(EXAMPLES / args[0]), *args[1:]])
     out = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
                          timeout=120,
-                         env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+                         env={**os.environ, "PYTHONPATH": str(ROOT / "src"),
+                              **dict(env)})
     assert out.returncode == 0, out.stderr[-4000:]
     return out.stdout
 
@@ -59,3 +60,21 @@ def test_serve_tinyml(chaos):
     assert "[sine]" in out and "[speech]" in out
     assert ("resilience       injected=" in out) is chaos
     assert "served rows are bit-identical to direct predict_q ✓" in out
+
+
+def test_serve_llm():
+    """Trains stablelm-3b ``-smoke`` a few steps, then serves it in fp32 and
+    int8 weight-only: the lines ``examples/serve_llm.py`` prints, the loss
+    falling."""
+    out = _run(["torch_serve_llm.py", "--steps", "25", "--batch", "4",
+                "--max-new", "8", "--device", "cpu"],
+               env={"OMP_NUM_THREADS": "2"})  # beside the other workers
+    lines = out.splitlines()
+    assert lines[0] == "model: stablelm-3b-smoke (2L d=256)", lines
+    losses = [float(ln.split()[-1]) for ln in lines
+              if ln.startswith("  train step")]
+    assert len(losses) == 3 and losses[-1] < losses[0] - 1.0, losses
+    for tag in ("fp32", "int8"):
+        assert any(ln.startswith(f"[{tag}] 32 tokens in ") and
+                   "rule-following" in ln for ln in lines), (tag, lines)
+    assert lines[-1].startswith("int8 vs fp32 token agreement: ")
