@@ -6,7 +6,8 @@ Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
 (into ``build/repro_torch_kernels/``), then drives four paths of the port
 at full width, with random weights from a seed, and the LLM serving and
 training paths, which launch none of the kernels (their products are
-PyTorch matmuls, as the reference's are XLA einsums). An engine call is a
+PyTorch matmuls, as the reference's are XLA einsums), and the launch
+layer's dry run and all-to-all MoE. An engine call is a
 CUDA-graph replay: the first one-sample ``predict_q`` captures the per-call
 forward, the first call of a bucket its batched forward; a capture runs the
 forward once eagerly and then captures it (two forwards' kernel-wrapper
@@ -188,11 +189,48 @@ inside the graph.
               same. Gate 4: a depth-2 checkpoint (params and AdamW state)
               saved and restored on the card bit for bit, and mamba2
               resumed from step 2 against four straight steps.
+17. launch  — the launch layer (``repro_torch.launch.{mesh,specs,
+              sharding,dryrun}``, ``models/moe_a2a.py``), in its own
+              process (``chip_smoke.py --launch``), run after the ``train``
+              process and before this process touches the card; its lines
+              are printed after ``train``. Gate 1, the dry run at full
+              width: ``python -m repro_torch.launch.dryrun`` (meta DTensors
+              over a fake process group, no card) for every config,
+              ``train_4k`` on the single-pod mesh (16×16) and
+              ``decode_32k`` on the multi-pod mesh (2×16×16) — the whole
+              sweep of 80 records takes longer on a CPU than the phase may
+              — and whisper-small × ``long_500k``, which must be skipped
+              with the reference's reason; every other record ``ok``, its
+              per-device argument bytes equal to the sum of its leaves'
+              local shard bytes; argument + temp bytes a device printed
+              beside the card's ``total_memory``, and the sweep's wall
+              seconds. Gate 2, the dry run against the card:
+              ``build_step`` and ``arg_shardings`` on a (1, 1) mesh for
+              stablelm-3b, kind ``train``, B 8 × T 64; the same
+              ``input_specs`` made on the card and the step run once: the
+              dry run's argument bytes equal the bytes of the arguments on
+              the card; the temp estimate printed beside
+              ``max_memory_allocated`` minus the argument bytes (an
+              observation). Gate 3, the all-to-all: four processes
+              (``chip_smoke.py --a2a RANK DIR``) on the one card over gloo
+              (NCCL refuses two ranks on one device; NCCL across four
+              cards waits for a four-card machine), deepseek-v2-236b's MoE
+              layer at its published widths (E 160, d 5120, moe_d_ff
+              1536, top-k 6, 2 shared experts; 15.1 GB of float32 expert
+              weights, 3.8 GB a rank, expert e drawn from a generator
+              seeded by (seed, e)), B 2 × 16 tokens at capacity factor
+              16, and kimi-k2's ``reduced()`` at capacity factor 16: y on
+              every rank within 5e-5 × max |y| of ``apply_moe`` on the
+              card over every expert drawn the same way; the bytes each
+              rank holds and the wall seconds printed (a gloo time, not
+              an NVLink one). ``python chip_smoke.py --launch`` runs it
+              alone.
 
 Each phase prints one JSON line (the ``kernels`` phase lists every call it
 timed, ``explicit`` the seven explicit cases, ``llm`` one line a config
-and one for checks 2 and 4 before its own, ``train`` one line a gate and
-one for the measurements before its own); then the ``kernels``
+and one for checks 2 and 4 before its own, ``train`` and ``launch`` one
+line a gate (and ``train`` one for the measurements) before their own);
+then the ``kernels``
 summary line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises, and the script exits
 non-zero without the last line.
@@ -2503,6 +2541,358 @@ def phase_train(lines, process_s) -> None:
 
 
 # ---------------------------------------------------------------------------
+# the launch layer: dry run, the dry run against the card, the all-to-all
+# ---------------------------------------------------------------------------
+
+# gate 1's records: train_4k on the single-pod mesh and decode_32k on the
+# multi-pod mesh for every config (the whole sweep takes longer than the
+# phase may on the CPU), and whisper-small × long_500k for the skip
+LAUNCH_SWEEP = (("train_4k", "single"), ("decode_32k", "multi"))
+LAUNCH_SKIP = ("whisper-small", "long_500k", "single")
+LAUNCH_ARCH = "stablelm-3b"          # gate 2: B 8 × T 64, kind train
+LAUNCH_B, LAUNCH_T = 8, 64
+A2A_WORLD = 4                         # gate 3: ranks on the one card
+A2A_ARCH, A2A_B, A2A_T, A2A_CF = "deepseek-v2-236b", 2, 16, 16.0
+A2A_TOL = 5e-5                        # × max |y| of apply_moe on the card
+
+
+def launch_records(out_dir) -> tuple:
+    """Gate 1's dry runs, one CLI process a (shapes, mesh) pair: (records,
+    wall seconds of each process)."""
+    walls = []
+    calls = [["--arch", "all", "--shape", s, "--mesh", m]
+             for s, m in LAUNCH_SWEEP]
+    calls.append(["--arch", LAUNCH_SKIP[0], "--shape", LAUNCH_SKIP[1],
+                  "--mesh", LAUNCH_SKIP[2]])
+    for argv in calls:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", *argv,
+             "--out", out_dir], cwd=ROOT,
+            env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+                     CUDA_VISIBLE_DEVICES=""),
+            capture_output=True, text=True, timeout=600)
+        walls.append(round(time.perf_counter() - t0, 3))
+        check(proc.returncode == 0, f"dryrun {argv}: rc {proc.returncode}: "
+                                    f"{proc.stdout[-3000:]}{proc.stderr[-2000:]}")
+    recs = [json.load(open(os.path.join(out_dir, f)))
+            for f in sorted(os.listdir(out_dir)) if f.endswith(".json")]
+    return recs, walls
+
+
+def shard_arg_bytes(rec, mesh_shape=None) -> int:
+    """A record's per-device argument bytes from its specs alone: the sum
+    of its leaves' local shard bytes."""
+    from repro_torch.configs import INPUT_SHAPES, get_config
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import MULTI_POD, SINGLE_POD
+    cfg, shape = get_config(rec["arch"]), INPUT_SHAPES[rec["shape"]]
+    mshape, axes = mesh_shape or (MULTI_POD if rec["mesh"] == "multi"
+                                  else SINGLE_POD)
+    sizes = dict(zip(axes, mshape))
+    _, args, _ = D.build_step(cfg, shape, quantized=rec["quantized"])
+    specs = D.arg_shardings(cfg, shape, args, sizes, rec["fsdp"])
+    return D.local_arg_bytes(args, specs, sizes)
+
+
+def launch_sweep() -> dict:
+    """Gate 1: every record ok but the skip, argument bytes by shard
+    arithmetic, argument + temp bytes a device beside the card's."""
+    import tempfile
+    from repro_torch.configs import INPUT_SHAPES, get_config, list_configs
+    from repro_torch.launch import specs as SP
+    out_dir = tempfile.mkdtemp(prefix="launch_dryrun_", dir=os.path.join(
+        ROOT, "build"))
+    t0 = time.perf_counter()
+    recs, walls = launch_records(out_dir)
+    wall = time.perf_counter() - t0
+    want = {(a, s, m) for a in list_configs() for s, m in LAUNCH_SWEEP}
+    want.add(LAUNCH_SKIP)
+    got = {(r["arch"], r["shape"], r["mesh"]): r for r in recs}
+    check(set(got) == want, f"dry-run records {sorted(set(got) ^ want)}")
+    card = torch.cuda.get_device_properties(0).total_memory
+    rows = []
+    for key in sorted(want):
+        r = got[key]
+        if key == LAUNCH_SKIP:
+            check(r["status"] == "skipped" and r["reason"] == SP.skip_reason(
+                get_config(key[0]), INPUT_SHAPES[key[1]]),
+                f"{key}: {r['status']} {r.get('reason')}")
+            continue
+        check(r["status"] == "ok", f"{key}: {r['status']}: "
+                                   f"{r.get('traceback', '')[-1500:]}")
+        mem = r["memory"]
+        want_b = shard_arg_bytes(r)
+        check(mem["argument_bytes"] == want_b,
+              f"{key}: argument bytes {mem['argument_bytes']} != shards "
+              f"{want_b}")
+        rows.append({"arch": key[0], "shape": key[1], "mesh": key[2],
+                     "fsdp": r["fsdp"], "argument_bytes": mem["argument_bytes"],
+                     "temp_bytes": mem["temp_bytes"],
+                     "argument_plus_temp_over_card": round(
+                         (mem["argument_bytes"] + mem["temp_bytes"]) / card, 4),
+                     "flops_per_device": r["flops_per_device"],
+                     "collective_bytes_total": r["collective_bytes_total"],
+                     "collectives": {k: v["count"] for k, v in
+                                     r["collectives"].items() if v["count"]},
+                     "trace_s": r["trace_s"], "fallback_ops": r["fallback_ops"]})
+    return {"phase": "launch_dryrun", "records": len(recs),
+            "ok": len(rows), "skipped": 1, "card_total_memory": card,
+            "sweep": [list(p) for p in LAUNCH_SWEEP],
+            "temp_method": next(r["memory"]["temp_method"] for r in recs
+                                if r["status"] == "ok"),
+            "process_wall_s": walls, "wall_s": round(wall, 3), "rows": rows}
+
+
+def launch_card() -> dict:
+    """Gate 2: ``build_step`` and ``arg_shardings`` on a (1, 1) mesh, then
+    the same specs made on the card and the step run once."""
+    from repro_torch.configs import InputShape, get_config
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch import specs as SP
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.models.model import trainable
+    cfg = get_config(LAUNCH_ARCH)
+    shape = InputShape("train", LAUNCH_T, LAUNCH_B, "train")
+    rec = D.run_one(LAUNCH_ARCH, "train", False, cfg=cfg, out_dir="",
+                    mesh_shape=((1, 1), ("data", "model")),
+                    input_shape=shape)
+    check(rec["status"] == "ok", f"gate 2 dry run: {rec.get('traceback')}")
+    step, args, _ = D.build_step(cfg, shape)
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    real = tuple(SP.materialize(a, "cuda", SEED + i)
+                 for i, a in enumerate(args))
+    for t in tree_leaves(real[1]["mu"]) + tree_leaves(real[1]["nu"]):
+        t.zero_()
+    torch.cuda.synchronize()
+    allocated = torch.cuda.memory_allocated() - before
+    leaves = [t for a in real for t in tree_leaves(a)]
+    arg_bytes = sum(t.untyped_storage().nbytes() for t in leaves)
+    check(rec["memory"]["argument_bytes"] == arg_bytes,
+          f"gate 2: dry run {rec['memory']['argument_bytes']} B of arguments, "
+          f"{arg_bytes} B on the card")
+    trainable(real[0])
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _, _, metrics = step(*real)
+    loss = float(metrics["loss"])
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - before
+    check(math.isfinite(loss), f"gate 2: loss {loss}")
+    out = {"phase": "launch_card", "arch": LAUNCH_ARCH, "batch": LAUNCH_B,
+           "seq": LAUNCH_T, "argument_bytes_dry_run":
+               rec["memory"]["argument_bytes"],
+           "argument_bytes_on_card": arg_bytes,
+           "memory_allocated_by_arguments": allocated,
+           "temp_bytes_estimate": rec["memory"]["temp_bytes"],
+           "peak_minus_arguments": peak - arg_bytes,
+           "estimate_over_measured": round(
+               rec["memory"]["temp_bytes"] / (peak - arg_bytes), 4),
+           "temp_method": rec["memory"]["temp_method"],
+           "flops_per_device": rec["flops_per_device"], "loss": loss,
+           "step_s": round(step_s, 3)}
+    del real, leaves, metrics
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def a2a_params(cfg, experts, device, seed=SEED) -> dict:
+    """One MoE layer's weights (float32) with only ``experts``' slabs of
+    ``w_gate`` / ``w_up`` / ``w_down``: expert e drawn from a generator
+    seeded by (seed, e), so that a rank draws its own slabs and the whole
+    layer is the same draws; the router and shared experts from ``seed``."""
+    from repro_torch.models.model import draw
+    from repro_torch.models.moe import init_moe
+    specs = init_moe(cfg, torch.float32)
+    shared = {k: v for k, v in specs.items()
+              if k not in ("w_gate", "w_up", "w_down")}
+    p = draw(shared, seed, device)
+    for name in ("w_gate", "w_up", "w_down"):
+        spec = specs[name]
+        out = torch.empty((len(experts),) + spec.shape[1:], device=device)
+        for i, e in enumerate(experts):
+            gen = torch.Generator(device=device).manual_seed(
+                seed * 1_000_003 + int(e))
+            out[i].normal_(generator=gen).mul_(spec.value)
+        p[name] = out
+    return p
+
+
+def a2a_cases():
+    import dataclasses as dc
+    from repro_torch.configs import get_config
+    return [("deepseek", dc.replace(get_config(A2A_ARCH),
+                                    capacity_factor=A2A_CF)),
+            ("kimi_reduced", dc.replace(get_config("kimi-k2-1t-a32b")
+                                        .reduced(), capacity_factor=A2A_CF))]
+
+
+def a2a_input(cfg, device):
+    gen = torch.Generator(device=device).manual_seed(SEED + 1)
+    return torch.randn((A2A_B, A2A_T, cfg.d_model), generator=gen,
+                       device=device) * 0.2
+
+
+def a2a_main(argv) -> int:
+    """One rank of gate 3 (``chip_smoke.py --a2a RANK WORKDIR``): a gloo
+    group of ``A2A_WORLD`` processes on the one card, each holding its own
+    experts' slabs; writes its y and bytes to ``WORKDIR``."""
+    rank, work = int(argv[0]), argv[1]
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.models.moe_a2a import moe_all_to_all
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(
+        os.path.join(work, "store"), A2A_WORLD), rank=rank,
+        world_size=A2A_WORLD)
+    mesh = init_device_mesh("cuda", (1, A2A_WORLD),
+                            mesh_dim_names=("data", "model"))
+    out = {}
+    for name, cfg in a2a_cases():
+        E_loc = cfg.n_experts // A2A_WORLD
+        p = a2a_params(cfg, range(rank * E_loc, (rank + 1) * E_loc), "cuda")
+        held = tree_bytes(p)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            y, aux = moe_all_to_all(cfg, p, a2a_input(cfg, "cuda"), mesh)
+        torch.cuda.synchronize()
+        out[name] = {"y": y.cpu(), "aux": float(aux), "bytes_held": held,
+                     "call_s": time.perf_counter() - t0,
+                     "backend": dist.get_backend(mesh.get_group("model"))}
+        del p, y
+        torch.cuda.empty_cache()
+    torch.save(out, os.path.join(work, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+    return 0
+
+
+def tree_bytes(tree) -> int:
+    from repro_torch.models.layers import tree_leaves
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def launch_a2a() -> dict:
+    """Gate 3: ``A2A_WORLD`` processes on the card run ``moe_all_to_all``
+    over gloo; every rank's y held against ``apply_moe`` on the card with
+    every expert drawn the same way."""
+    import tempfile
+    from repro_torch.models.moe import apply_moe
+    work = tempfile.mkdtemp(prefix="a2a_", dir=os.path.join(ROOT, "build"))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--a2a", str(r), work],
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src")),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(A2A_WORLD)]
+    errs = []
+    for r, pr in enumerate(procs):
+        try:
+            _, err = pr.communicate(timeout=400)
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            raise
+        if pr.returncode:
+            errs.append(f"rank {r}: rc {pr.returncode}: {err[-2000:]}")
+    check(not errs, "a2a: " + "\n".join(errs))
+    ranks_s = time.perf_counter() - t0
+    got = [torch.load(os.path.join(work, f"rank{r}.pt"))
+           for r in range(A2A_WORLD)]
+    cases = []
+    for name, cfg in a2a_cases():
+        p = a2a_params(cfg, range(cfg.n_experts), "cuda")
+        with torch.no_grad():
+            y_ref, aux_ref = apply_moe(cfg, p, a2a_input(cfg, "cuda"))
+        y_ref = y_ref.cpu()
+        scale = float(y_ref.abs().max())
+        errs = [float((g[name]["y"] - y_ref).abs().max()) for g in got]
+        check(all(math.isfinite(e) for e in errs) and max(errs)
+              <= A2A_TOL * scale,
+              f"a2a {name}: max |y - apply_moe| {errs}, max |y| {scale}")
+        cases.append({"case": name, "n_experts": cfg.n_experts,
+                      "d_model": cfg.d_model, "moe_d_ff": cfg.expert_d_ff,
+                      "top_k": cfg.top_k,
+                      "shared_experts": cfg.n_shared_experts,
+                      "tokens": A2A_B * A2A_T,
+                      "capacity_factor": cfg.capacity_factor,
+                      "layer_bytes": tree_bytes(p),
+                      "bytes_held_per_rank": [g[name]["bytes_held"]
+                                              for g in got],
+                      "max_abs_err_per_rank": errs, "max_abs_y": scale,
+                      "tol": A2A_TOL, "aux_per_rank": [g[name]["aux"]
+                                                       for g in got],
+                      "aux_apply_moe": float(aux_ref),
+                      "call_s_per_rank": [round(g[name]["call_s"], 3)
+                                          for g in got]})
+        del p
+        torch.cuda.empty_cache()
+    return {"phase": "launch_a2a", "ranks": A2A_WORLD,
+            "backend": got[0][cases[0]["case"]]["backend"],
+            "transport": "gloo on one card, CUDA tensors given to gloo as "
+                         "they are (NCCL refuses two ranks on one device; "
+                         "NCCL across four cards waits for a four-card "
+                         "machine); its times are not NVLink's",
+            "cases": cases, "ranks_wall_s": round(ranks_s, 3),
+            "wall_s": round(time.perf_counter() - t0, 3)}
+
+
+def launch_main() -> int:
+    """The ``launch`` phase's own process (``chip_smoke.py --launch``):
+    gates 1-3, one JSON line each."""
+    if not torch.cuda.is_available():
+        print("chip_smoke --launch: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    t0 = time.perf_counter()
+    emit(launch_sweep())
+    emit(launch_card())
+    emit(launch_a2a())
+    emit({"phase": "launch_process", "wall_s":
+          round(time.perf_counter() - t0, 3)})
+    return 0
+
+
+def run_launch() -> tuple:
+    """The ``launch`` phase's process (see the module docstring, 17), after
+    the ``train`` process and before this process touches the card: (its
+    stdout lines, seconds)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--launch"], cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+                 PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True"),
+        capture_output=True, text=True, timeout=900)
+    check(proc.returncode == 0, f"launch: rc {proc.returncode}: "
+                                f"{proc.stdout[-2000:]}{proc.stderr[-3000:]}")
+    return proc.stdout.splitlines(), time.perf_counter() - t0
+
+
+def phase_launch(lines, process_s) -> None:
+    """The lines of :func:`run_launch`'s process, and the phase's summary."""
+    rows = {r["phase"]: r for r in (json.loads(ln) for ln in lines
+                                    if ln.startswith("{"))}
+    want = ("launch_dryrun", "launch_card", "launch_a2a")
+    check(all(p in rows for p in want), f"launch: phases {sorted(rows)}")
+    for p in want:
+        emit(rows[p])
+    dr, card, a2a = (rows[p] for p in want)
+    emit({"phase": "launch", "dryrun_records": dr["records"],
+          "dryrun_ok": dr["ok"], "dryrun_wall_s": dr["wall_s"],
+          "max_argument_plus_temp_over_card": max(
+              r["argument_plus_temp_over_card"] for r in dr["rows"]),
+          "card_argument_bytes": card["argument_bytes_on_card"],
+          "card_temp_estimate_over_measured": card["estimate_over_measured"],
+          "a2a_max_rel_err": max(max(c["max_abs_err_per_rank"])
+                                 / c["max_abs_y"] for c in a2a["cases"]),
+          "a2a_wall_s": a2a["wall_s"], "process_s": round(process_s, 3)})
+
+
+# ---------------------------------------------------------------------------
 # layer by layer
 # ---------------------------------------------------------------------------
 
@@ -2609,6 +2999,7 @@ def main() -> int:
     sys.path.insert(0, os.path.join(ROOT, "src"))
     llm_lines, llm_s = run_llm()
     train_lines, train_s = run_train()
+    launch_lines, launch_s = run_launch()
     from repro_torch.configs.paper_models import (PAPER_MODELS, build_person,
                                                   build_speech)
     from repro_torch.core.engine import CompiledModel, bucket_for
@@ -2833,6 +3224,7 @@ def main() -> int:
     phase_examples()
     phase_llm(llm_lines, llm_s)
     phase_train(train_lines, train_s)
+    phase_launch(launch_lines, launch_s)
 
     # -- summary: per forward at bucket 1 (and 8) of the path each kernel is on
     keys = ("ms", "plain_ms", "bound_ms", "library_ms", "call_ms")
@@ -2881,4 +3273,8 @@ if __name__ == "__main__":
         sys.exit(llm_main())
     if sys.argv[1:2] == ["--train"]:
         sys.exit(train_main())
+    if sys.argv[1:2] == ["--launch"]:
+        sys.exit(launch_main())
+    if sys.argv[1:2] == ["--a2a"]:
+        sys.exit(a2a_main(sys.argv[2:]))
     sys.exit(main())

@@ -43,6 +43,19 @@ class SyntheticLM:
         return {"tokens": toks[:, :-1].astype(np.int32),
                 "labels": toks[:, 1:].astype(np.int32)}
 
+    def shard(self, batch: dict, mesh) -> dict:
+        """Each array of ``batch`` as a DTensor on ``mesh``, under
+        ``batch_spec``'s placements (the batch dimension over the data
+        axes where it divides). Every rank derives the same batch from
+        the step index, so each keeps its own rows without
+        communication."""
+        import torch
+
+        from ..launch import sharding as SH
+        return {k: SH.distribute(torch.as_tensor(v),
+                                 SH.batch_spec(np.shape(v), mesh), mesh)
+                for k, v in batch.items()}
+
 
 def frontend_stub(cfg, B, rng=None):
     """STUB modality frontends: precomputed patch / frame embeddings of the

@@ -6,9 +6,14 @@
 Runs real training on one device: on the card unless ``--device`` says
 otherwise. Any registered arch id works, ``<id>-smoke`` selects the reduced
 variant, and ``--layers N`` cuts the depth to N layers in whole periods.
-``--mesh local`` is the reference's one-device mesh, so nothing is sharded;
-its production meshes are not ported. With ``--ckpt-dir`` the run resumes
-from the latest step there and saves every ``--ckpt-every`` steps.
+``--mesh local`` (the default) is the reference's one-device mesh, so
+nothing is sharded. ``--mesh single|multi`` builds the production mesh over
+the launched world (a process group of 256 / 512 ranks, under ``torchrun``
+or a fake one) and computes every parameter's placements on it; as in the
+reference, whose ``jax.jit`` gets no ``in_shardings``, they are not
+applied, and the run trains as ``--mesh local`` does. With ``--ckpt-dir``
+the run resumes from the latest step there and saves every
+``--ckpt-every`` steps.
 """
 from __future__ import annotations
 
@@ -18,11 +23,15 @@ import time
 import numpy as np
 
 from ..configs import get_config
+from ..core.device import resolve_device
 from ..data.pipeline import DataConfig, SyntheticLM, frontend_stub
 from ..models import model as M
+from ..models.layers import tree_leaves, tree_map
 from ..optim import adamw
 from ..train import checkpoint as CKPT
 from ..train.step import make_train_step
+from . import sharding as SH
+from .mesh import axis_sizes, make_production_mesh
 from .serve import DTYPES, cut_depth
 
 
@@ -35,7 +44,8 @@ def main(argv=None):
     ap.add_argument("--lr", type=float, default=3e-3)
     ap.add_argument("--dtype", choices=sorted(DTYPES), default="float32")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--mesh", default="local", choices=["local"])
+    ap.add_argument("--mesh", default="local",
+                    choices=["local", "single", "multi"])
     ap.add_argument("--remat", action="store_true")
     ap.add_argument("--ckpt-dir", default="")
     ap.add_argument("--ckpt-every", type=int, default=0)
@@ -69,6 +79,15 @@ def main(argv=None):
     stub_rng = np.random.default_rng(args.seed)
 
     step_fn = make_train_step(cfg, opt_cfg, remat=args.remat)
+    if args.mesh != "local":
+        mesh = make_production_mesh(multi_pod=args.mesh == "multi",
+                                    device_type=resolve_device(
+                                        args.device).type)
+        placements = tree_map(lambda s: SH.to_placements(s, mesh),
+                              SH.param_specs(params.tree(), mesh))
+        print(f"[train] mesh {args.mesh} {axis_sizes(mesh)}: placements of "
+              f"{len(tree_leaves(placements))} parameters computed, not "
+              "applied (as the reference's)")
     t0 = time.time()
     losses = []
     for step in range(start, args.steps):

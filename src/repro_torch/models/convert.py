@@ -51,6 +51,17 @@ def params_from_reference(cfg, tree, device="cuda") -> Model:
     return Model(cfg, got).to(dev)
 
 
+def moe_from_reference(cfg, tree, device="cuda") -> dict:
+    """One MoE layer's reference tree (``repro.models.moe.init_moe``'s
+    output, unstacked) as the port's tree of tensors, every shape checked
+    against :func:`repro_torch.models.moe.init_moe`'s."""
+    from .moe import init_moe
+    dev = resolve_device(device)
+    got = _carry(init_moe(cfg, torch.float32), tree, "",
+                 lambda spec: spec.shape)
+    return tree_map(lambda t: t.to(dev), got)
+
+
 def cache_from_reference(cfg, tree, B, S, device="cuda"):
     """The reference's cache ``tree`` (``init_cache(cfg, B, S)``'s layout)
     as the port's cache."""

@@ -1,11 +1,8 @@
 """Mixture-of-Experts (the port of ``repro.models.moe``): top-k routing with
 a static per-expert capacity; dispatch and combine by gather and
 scatter-add, so the work scales with the capacity slots, not with the
-tokens times the experts.
-
-The expert-parallel all-to-all of the reference (``A2A_MESH``,
-``repro.models.moe_a2a``) belongs to the launch layer and is not ported
-here.
+tokens times the experts. With ``A2A_MESH`` set, the expert-parallel
+all-to-all dispatch of :mod:`~repro_torch.models.moe_a2a` runs instead.
 """
 from __future__ import annotations
 
@@ -57,12 +54,13 @@ def _route_and_compute(cfg, p, xf, C):
     e_idx = torch.where(keep, e_s, E)          # dropped -> dummy expert row
     r_idx = torch.where(keep, rank, 0)
 
-    dispatch = torch.full((E + 1, C), n, dtype=torch.long, device=dev)
-    dispatch[e_idx, r_idx] = t_s
-    dispatch = dispatch[:E]
-    w_disp = torch.zeros((E + 1, C), dtype=torch.float32, device=dev)
-    w_disp[e_idx, r_idx] = w_s
-    w_disp = w_disp[:E]
+    # the tables and the combine are written out of place (index_put,
+    # index_add): the same values, and a sharded dry run keeps the layout
+    # of the result (launch/dryrun.py)
+    dispatch = torch.full((E + 1, C), n, dtype=torch.long, device=dev) \
+        .index_put((e_idx, r_idx), t_s)[:E]
+    w_disp = torch.zeros((E + 1, C), dtype=torch.float32, device=dev) \
+        .index_put((e_idx, r_idx), w_s)[:E]
 
     xp = torch.cat([xf, xf.new_zeros((1, d))], 0)              # pad row
     xe = xp[dispatch]                                          # (E, C, d)
@@ -77,7 +75,7 @@ def _route_and_compute(cfg, p, xf, C):
     ye.mul_(w_disp[..., None].to(ye.dtype))
 
     y = torch.zeros((n + 1, d), dtype=ye.dtype, device=dev) \
-        .index_add_(0, dispatch.reshape(-1), ye.reshape(-1, d))[:n]
+        .index_add(0, dispatch.reshape(-1), ye.reshape(-1, d))[:n]
 
     # Switch-style load-balance loss.
     frac_tokens = torch.nn.functional.one_hot(gate_e, E).float().sum(1) \
@@ -87,6 +85,13 @@ def _route_and_compute(cfg, p, xf, C):
     return y, aux
 
 
+# When set to a DeviceMesh with a 'model' axis, apply_moe routes through
+# the explicit all-to-all dispatch (models/moe_a2a.py) on every rank of
+# that axis. Set by the caller around the step, as the reference's dry
+# run and hill climb set their own.
+A2A_MESH = None
+
+
 def apply_moe(cfg, p, x):
     """x (B, T, d) -> (y (B, T, d), aux_loss scalar fp32).
 
@@ -94,6 +99,11 @@ def apply_moe(cfg, p, x):
     (batch-major) and every group routes with a group-local capacity."""
     B, T, d = x.shape
     n = B * T
+    if A2A_MESH is not None:
+        S = dict(zip(A2A_MESH.mesh_dim_names, A2A_MESH.shape)).get("model", 1)
+        if S > 1 and cfg.n_experts % S == 0 and n % S == 0:
+            from .moe_a2a import moe_all_to_all
+            return moe_all_to_all(cfg, p, x, A2A_MESH)
     G = cfg.moe_groups if cfg.moe_groups and cfg.moe_groups > 1 else 1
     if G > 1 and n % G == 0 and (n // G) >= cfg.top_k:
         C = capacity(cfg, n // G)

@@ -1,7 +1,8 @@
 """The port's training launcher (``python -m repro_torch.launch.train``) on
 the CPU: in a subprocess as a user runs it, the loss falls and the log
 lines are the reference launcher's; a run resumes from its checkpoint
-directory; only the one-device mesh and whole periods are taken. Then ``tests/test_archs.py::
+directory; without a launched world only the one-device mesh, and only
+whole periods, are taken. Then ``tests/test_archs.py::
 test_smoke_train_step`` copied onto the port (every ``reduced()`` config
 takes one step)."""
 import os
@@ -66,12 +67,18 @@ def test_resumes_from_the_checkpoint_directory(tmp_path, capsys):
 
 
 def test_only_the_local_mesh_and_whole_periods(capsys):
+    """Without a launched world, only the one-device mesh is taken: a
+    production mesh needs a process group of its size (256 ranks for
+    ``single``), and an unknown mesh is refused."""
     from repro_torch.launch import train
-    with pytest.raises(SystemExit) as e:
+    with pytest.raises(RuntimeError, match="256 ranks; none is active"):
         train.main(["--arch", "stablelm-3b-smoke", "--mesh", "single",
                     "--device", "cpu"])
+    with pytest.raises(SystemExit) as e:
+        train.main(["--arch", "stablelm-3b-smoke", "--mesh", "pods",
+                    "--device", "cpu"])
     assert e.value.code == 2
-    assert "invalid choice: 'single'" in capsys.readouterr().err
+    assert "invalid choice: 'pods'" in capsys.readouterr().err
     with pytest.raises(ValueError, match="multiple of its period"):
         train.main(["--arch", "jamba-v0.1-52b-smoke", "--layers", "3",
                     "--device", "cpu"])
