@@ -127,11 +127,14 @@ inside the graph.
               softmax). Wall seconds split into plan builds, captures,
               staging, store, load and library installs, beside the
               ``build`` phase's nvcc seconds;
-14. examples — ``examples/torch_quickstart.py``,
+14. examples — ``examples/torch_quickstart.py`` (its graph saved,
+              reloaded and run bit-identically too),
               ``torch_person_detection.py``, ``torch_serve_tinyml.py 64``
-              (and ``--chaos``) and ``torch_serve_llm.py`` (60 train steps,
-              then fp32 and int8 serving) on the card, each in its own
-              process: exit 0 and their "✓" (or agreement) lines;
+              (and ``--chaos``), ``torch_serve_llm.py`` (60 train steps,
+              then fp32 and int8 serving) and ``torch_train_sine.py`` (the
+              sine MLP trained, its int8 engines bit-identical) on the
+              card, each in its own process: exit 0 and their "✓" (or
+              agreement) lines;
 15. llm     — LLM serving (``repro_torch.models``, ``.serve.engine`` /
               ``.quantized``), in its own process (``chip_smoke.py
               --llm``), started before this process touches the card so
@@ -202,10 +205,14 @@ inside the graph.
               — and whisper-small × ``long_500k``, which must be skipped
               with the reference's reason; every other record ``ok``, its
               per-device argument bytes equal to the sum of its leaves'
-              local shard bytes; argument + temp bytes a device printed
-              beside the card's ``total_memory``, and the sweep's wall
-              seconds. Gate 2, the dry run against the card:
-              ``build_step`` and ``arg_shardings`` on a (1, 1) mesh for
+              local shard bytes; the ``train_4k`` FLOPs a device of the
+              dense attention configs (stablelm-3b, starcoder2-3b,
+              internlm2-20b, chatglm3-6b) at most 1.25× the analytic count
+              (``analytic_train_flops``); argument + temp bytes a device
+              printed beside the card's ``total_memory``, collective bytes
+              by kind, and the sweep's wall seconds. Gate 2, the dry run
+              against the card: ``build_step`` and ``arg_shardings`` on a
+              (1, 1) mesh for
               stablelm-3b, kind ``train``, B 8 × T 64; the same
               ``input_specs`` made on the card and the step run once: the
               dry run's argument bytes equal the bytes of the arguments on
@@ -225,6 +232,19 @@ inside the graph.
               rank holds and the wall seconds printed (a gloo time, not
               an NVLink one). ``python chip_smoke.py --launch`` runs it
               alone.
+18. graph   — graph files (``repro_torch.core.graph.save`` / ``load``,
+              no msgpack), counted: sine, speech and person quantized on
+              the card, each saved, loaded back (``msgpack`` never
+              imported) and run on the kernel route at buckets 1 and 8
+              beside the original graph's engine: rows bit-equal (±1 LSB
+              on a softmax output only); the JAX package's quantized sine
+              file (``tests/data/sine_int8.mfg``) loaded and run on the
+              kernel route, its rows equal to the CPU plain route's; each
+              file's bytes and sha256. Then the sine example's path
+              (``examples/torch_train_sine.py``'s ``sine_metrics``:
+              4000 AdamW steps on the card, the Table 5 protocol), counted:
+              every MSE <= 0.006, the int8 interpreter and the compiled
+              engine (``qmatmul``) bit-identical.
 
 Each phase prints one JSON line (the ``kernels`` phase lists every call it
 timed, ``explicit`` the seven explicit cases, ``llm`` one line a config
@@ -1707,13 +1727,15 @@ def phase_coldstart(build_wall_s: float, nvcc_s: dict) -> dict:
 EXAMPLE_RUNS = (("torch_quickstart.py",), ("torch_person_detection.py",),
                 ("torch_serve_tinyml.py", "64"),
                 ("torch_serve_tinyml.py", "64", "--chaos"),
-                ("torch_serve_llm.py",))
+                ("torch_serve_llm.py",), ("torch_train_sine.py",))
 EXAMPLE_MARKS = {
-    "torch_quickstart.py": "engines agree bit-exactly ✓",
-    "torch_person_detection.py": "engines agree ✓",
+    "torch_quickstart.py": ("engines agree bit-exactly ✓",
+                            "saved and reloaded graph runs bit-identically ✓"),
+    "torch_person_detection.py": ("engines agree ✓",),
     "torch_serve_tinyml.py":
-        "served rows are bit-identical to direct predict_q ✓",
-    "torch_serve_llm.py": "int8 vs fp32 token agreement: "}
+        ("served rows are bit-identical to direct predict_q ✓",),
+    "torch_serve_llm.py": ("int8 vs fp32 token agreement: ",),
+    "torch_train_sine.py": ("int8 engines bit-identical: True",)}
 
 
 def phase_examples() -> None:
@@ -1730,13 +1752,14 @@ def phase_examples() -> None:
         check(proc.returncode == 0, f"{' '.join(args)}: rc {proc.returncode}"
                                     f": {proc.stderr[-3000:]}")
         lines = proc.stdout.splitlines()
-        check(EXAMPLE_MARKS[args[0]] in lines
-              or any(EXAMPLE_MARKS[args[0]] in ln for ln in lines),
-              f"{' '.join(args)} did not print {EXAMPLE_MARKS[args[0]]!r}")
+        for mark in EXAMPLE_MARKS[args[0]]:
+            check(any(mark in ln for ln in lines),
+                  f"{' '.join(args)} did not print {mark!r}")
         keep = [ln.strip() for ln in lines
                 if "✓" in ln or "median" in ln or "served (" in ln
                 or "resilience" in ln or "train step" in ln
-                or "tok/s" in ln or "agreement" in ln]
+                or "tok/s" in ln or "agreement" in ln
+                or ln.startswith(("float ", "int8", "predict sin"))]
         runs.append({"args": list(args), "rc": proc.returncode,
                      "wall_s": round(time.perf_counter() - t0, 3),
                      "lines": keep})
@@ -2551,6 +2574,11 @@ LAUNCH_SWEEP = (("train_4k", "single"), ("decode_32k", "multi"))
 LAUNCH_SKIP = ("whisper-small", "long_500k", "single")
 LAUNCH_ARCH = "stablelm-3b"          # gate 2: B 8 × T 64, kind train
 LAUNCH_B, LAUNCH_T = 8, 64
+# gate 1: train_4k FLOPs a device of the dense attention configs within
+# this factor of the analytic count (PR 20's dry run read 2.0 on stablelm)
+LAUNCH_DENSE = ("stablelm-3b", "starcoder2-3b", "internlm2-20b",
+                "chatglm3-6b")
+LAUNCH_FLOPS_TOL = 1.25
 A2A_WORLD = 4                         # gate 3: ranks on the one card
 A2A_ARCH, A2A_B, A2A_T, A2A_CF = "deepseek-v2-236b", 2, 16, 16.0
 A2A_TOL = 5e-5                        # × max |y| of apply_moe on the card
@@ -2595,6 +2623,26 @@ def shard_arg_bytes(rec, mesh_shape=None) -> int:
     return D.local_arg_bytes(args, specs, sizes)
 
 
+def analytic_train_flops(cfg, shape, n_devices) -> float:
+    """A dense attention config's train-step FLOPs a device from the config
+    alone: the forward's products (2 × tokens × the decoder's matrix
+    weights, and the attention scores and values, 2 × 2 × B × T² × H × hd a
+    layer, the whole T × T as the port computes them) 4 times (forward,
+    remat's recompute, and the two products of the backward), the LM
+    head's 3 times (outside the remat), ÷ the devices."""
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.models.model import param_specs
+    specs = param_specs(cfg)
+    tokens = shape.global_batch * shape.seq_len
+    matrices = sum(math.prod(s.shape) for s in tree_leaves(specs["layers"])
+                   if len(s.shape) == 3)  # (n_periods, d_in, d_out)
+    attn = 4 * shape.global_batch * shape.seq_len ** 2 * cfg.n_heads \
+        * cfg.head_dim * cfg.n_layers
+    stack = 2 * tokens * matrices + attn
+    head = 2 * tokens * math.prod(specs["lm_head"].shape)
+    return (4 * stack + 3 * head) / n_devices
+
+
 def launch_sweep() -> dict:
     """Gate 1: every record ok but the skip, argument bytes by shard
     arithmetic, argument + temp bytes a device beside the card's."""
@@ -2626,6 +2674,17 @@ def launch_sweep() -> dict:
         check(mem["argument_bytes"] == want_b,
               f"{key}: argument bytes {mem['argument_bytes']} != shards "
               f"{want_b}")
+        row = {}
+        if key[0] in LAUNCH_DENSE and key[1:] == ("train_4k", "single"):
+            analytic = analytic_train_flops(get_config(key[0]),
+                                            INPUT_SHAPES[key[1]],
+                                            r["n_devices"])
+            ratio = r["flops_per_device"] / analytic
+            check(ratio <= LAUNCH_FLOPS_TOL,
+                  f"{key}: FLOPs a device {r['flops_per_device']:.4g} are "
+                  f"{ratio:.3f} of the analytic {analytic:.4g}")
+            row = {"analytic_flops_per_device": analytic,
+                   "flops_over_analytic": round(ratio, 4)}
         rows.append({"arch": key[0], "shape": key[1], "mesh": key[2],
                      "fsdp": r["fsdp"], "argument_bytes": mem["argument_bytes"],
                      "temp_bytes": mem["temp_bytes"],
@@ -2635,7 +2694,11 @@ def launch_sweep() -> dict:
                      "collective_bytes_total": r["collective_bytes_total"],
                      "collectives": {k: v["count"] for k, v in
                                      r["collectives"].items() if v["count"]},
-                     "trace_s": r["trace_s"], "fallback_ops": r["fallback_ops"]})
+                     "collective_bytes": {k: v["bytes"] for k, v in
+                                          r["collectives"].items()
+                                          if v["count"]},
+                     "trace_s": r["trace_s"], "fallback_ops": r["fallback_ops"],
+                     **row})
     return {"phase": "launch_dryrun", "records": len(recs),
             "ok": len(rows), "skipped": 1, "card_total_memory": card,
             "sweep": [list(p) for p in LAUNCH_SWEEP],
@@ -2885,11 +2948,129 @@ def phase_launch(lines, process_s) -> None:
           "dryrun_ok": dr["ok"], "dryrun_wall_s": dr["wall_s"],
           "max_argument_plus_temp_over_card": max(
               r["argument_plus_temp_over_card"] for r in dr["rows"]),
+          "train_4k_flops_over_analytic": {
+              r["arch"]: r["flops_over_analytic"] for r in dr["rows"]
+              if "flops_over_analytic" in r},
           "card_argument_bytes": card["argument_bytes_on_card"],
           "card_temp_estimate_over_measured": card["estimate_over_measured"],
           "a2a_max_rel_err": max(max(c["max_abs_err_per_rank"])
                                  / c["max_abs_y"] for c in a2a["cases"]),
           "a2a_wall_s": a2a["wall_s"], "process_s": round(process_s, 3)})
+
+
+# ---------------------------------------------------------------------------
+# graph files
+# ---------------------------------------------------------------------------
+
+GRAPH_SHAPES = {"sine": (1, 1), "speech": (1, 49, 40, 1),
+                "person": (1, 96, 96, 1)}
+GRAPH_BUCKETS = (1, 8)
+GRAPH_JAX_FILE = os.path.join("tests", "data", "sine_int8.mfg")
+SINE_MSE_MAX = 0.006          # the noise floor of U(-0.1, 0.1) is 0.0033
+
+
+def _file_facts(path) -> dict:
+    with open(path, "rb") as f:
+        data = f.read()
+    return {"bytes": len(data), "sha256": hashlib.sha256(data).hexdigest()}
+
+
+def _load_example(name):
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(ROOT, "examples", name + ".py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_graph() -> None:
+    """Graph files and the sine example's path on the card, counted (see
+    the module docstring, 18)."""
+    import tempfile
+    from repro_torch.configs.paper_models import PAPER_MODELS
+    from repro_torch.core import graph as G
+    from repro_torch.core.engine import CompiledModel
+    from repro_torch.core.quantize import quantize_graph
+    rng = np.random.default_rng(SEED + 3)
+    graphs = {}
+    for name, shape in GRAPH_SHAPES.items():
+        g = quantize_graph(PAPER_MODELS[name](), [
+            rng.normal(0, 1, shape).astype("f") for _ in range(2)],
+            device="cuda")
+        xs = np.stack([g.tensor(g.inputs[0]).qparams.quantize(
+            rng.normal(0, 1, shape).astype("f"))
+            for _ in range(max(GRAPH_BUCKETS))])
+        graphs[name] = (g, xs)
+    jpath = os.path.join(ROOT, GRAPH_JAX_FILE)
+    out_dir = tempfile.mkdtemp(prefix="graph_", dir=os.path.join(ROOT,
+                                                                 "build"))
+
+    reset_counts()
+    files, lsb = {}, {}
+    for name, (g, xs) in graphs.items():
+        path = os.path.join(out_dir, f"{name}_int8.mfg")
+        G.save(g, path)
+        loaded = G.load(path)
+        check("msgpack" not in sys.modules, "loading a graph imported msgpack")
+        orig = CompiledModel(g, use_kernels=True, device="cuda")
+        cm = CompiledModel(loaded, use_kernels=True, device="cuda")
+        softmax = g.ops[-1].op == "SOFTMAX"
+        lsb[name] = 0
+        for b in GRAPH_BUCKETS:
+            want = orig.predict_q_many(xs[:b], max_batch=b)
+            got = cm.predict_q_many(xs[:b], max_batch=b)
+            check(got.shape == want.shape, f"{name} bucket {b}: shape")
+            d = int(np.abs(got.astype(np.int32) - want.astype(np.int32))
+                    .max(initial=0))
+            check(d <= (1 if softmax else 0),
+                  f"{name} bucket {b}: reloaded rows differ by {d}")
+            lsb[name] = max(lsb[name], d)
+        files[name] = _file_facts(path)
+    jg = G.load(jpath)
+    jxs = np.stack([jg.tensor(jg.inputs[0]).qparams.quantize(
+        rng.uniform(0, 2 * np.pi, (1, 1)).astype("f"))
+        for _ in range(max(GRAPH_BUCKETS))])
+    jax_rows = {}
+    for b in GRAPH_BUCKETS:
+        want = CompiledModel(jg, use_kernels=False, device="cpu") \
+            .predict_q_many(jxs[:b], max_batch=b)
+        got = CompiledModel(jg, use_kernels=True, device="cuda") \
+            .predict_q_many(jxs[:b], max_batch=b)
+        check(np.array_equal(got, want),
+              f"the JAX package's sine file, bucket {b}: rows differ from "
+              "the CPU plain route")
+        jax_rows[str(b)] = got.reshape(b, -1)[:, 0].tolist()
+    check("msgpack" not in sys.modules, "loading a graph imported msgpack")
+    torch.cuda.synchronize()
+    graph_counts = launch_counts()
+    check(graph_counts["qmatmul"] > 0 and graph_counts["qdwconv"] > 0,
+          f"graph files: launches {graph_counts}")
+
+    # the sine example's path (the ``examples`` phase runs its CLI): its
+    # trainer and Table 5 protocol, counted
+    ts = _load_example("torch_train_sine")
+    reset_counts()
+    t0 = time.perf_counter()
+    res = ts.sine_metrics(device="cuda")
+    torch.cuda.synchronize()
+    sine_s = time.perf_counter() - t0
+    sine_counts = launch_counts()
+    check(sine_counts["qmatmul"] > 0, f"sine example: launches {sine_counts}")
+    check(res["engines_equal"], "sine example: int8 engines differ")
+    for k in ("float", "int8_interp", "int8_compiled"):
+        check(res[k]["mse"] <= SINE_MSE_MAX, f"sine example: {k} {res[k]}")
+    emit({"phase": "graph", "files": files,
+          "jax_file": {"path": GRAPH_JAX_FILE, **_file_facts(jpath),
+                       "rows_equal_cpu_plain": True, "rows": jax_rows},
+          "buckets": list(GRAPH_BUCKETS), "max_lsb_reloaded": lsb,
+          "msgpack_imported": "msgpack" in sys.modules,
+          "launches": {k: v for k, v in graph_counts.items() if v},
+          "sine_example": {"launches": {k: v for k, v in sine_counts.items()
+                                        if v},
+                           "wall_s": round(sine_s, 3),
+                           **{k: res[k] for k in ("float", "int8_interp",
+                                                  "int8_compiled")}}})
 
 
 # ---------------------------------------------------------------------------
@@ -3225,6 +3406,7 @@ def main() -> int:
     phase_llm(llm_lines, llm_s)
     phase_train(train_lines, train_s)
     phase_launch(launch_lines, launch_s)
+    phase_graph()
 
     # -- summary: per forward at bucket 1 (and 8) of the path each kernel is on
     keys = ("ms", "plain_ms", "bound_ms", "library_ms", "call_ms")

@@ -9,6 +9,8 @@ plans. The twin of ``examples/quickstart.py``.
 On the card by default; ``--device cpu`` runs the kernels' plain versions.
 """
 import argparse
+import os
+import tempfile
 
 import numpy as np
 
@@ -44,9 +46,12 @@ def main(device: str = "cuda"):
     qg = quantize_graph(fg, rep, device=device)
     print(f"quantized: {len(qg.ops)} ops, weights {qg.weight_bytes} B")
 
-    # 3. Serialize / deserialize the model (the document the JAX package's
-    #    on-disk format packs).
-    qg = G.graph_from_doc(G.graph_to_doc(qg))
+    # 3. Save / load the model (the JAX package's on-disk format, byte for
+    #    byte; no msgpack needed).
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "quickstart.mfg")
+        G.save(qg, path)
+        loaded = G.load(path)
 
     # 4. Run through the engines.
     x = rng.normal(0, 1, (1, 16, 16, 3)).astype("f")
@@ -63,6 +68,9 @@ def main(device: str = "cuda"):
     print("kernels:    ", np.round(yk, 4))
     assert np.array_equal(yi, yc) and np.array_equal(yc, yk)
     print("engines agree bit-exactly ✓")
+    yl = CompiledModel(loaded, use_kernels=True, device=device).predict(x)
+    assert np.array_equal(yl, yk)
+    print("saved and reloaded graph runs bit-identically ✓")
 
     # 5. The paper's memory story (Figs. 9/10): arena vs ownership stack.
     rep_ = memory_report(qg)

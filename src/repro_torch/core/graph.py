@@ -2,10 +2,11 @@
 
 Numpy only: tensors (with the quantization parameters of Eq. 1) and a
 sequential list of operators. The port keeps its own copy so that it never
-imports the JAX package. :func:`graph_from_doc` / :func:`load` read the
-msgpack schema the JAX package's ``save`` writes, which is how a quantized
-graph (int8 weights, int32 biases, per-tensor / per-channel ``QParams``) is
-carried from one package to the other.
+imports the JAX package. :func:`save` / :func:`load` write and read the
+msgpack file of the JAX package's ``save`` (byte for byte, with the port's
+own msgpack subset, :mod:`repro_torch.core.packb`), which is how a
+quantized graph (int8 weights, int32 biases, per-tensor / per-channel
+``QParams``) is carried from one package to the other.
 """
 from __future__ import annotations
 
@@ -13,6 +14,8 @@ from dataclasses import dataclass, field
 from typing import Optional
 
 import numpy as np
+
+from .packb import Reader, packb
 
 # Operator vocabulary (paper Table 2) + the Sec. 7 extensions.
 FULLY_CONNECTED = "FULLY_CONNECTED"
@@ -242,12 +245,18 @@ def graph_to_doc(g: Graph) -> dict:
                     for o in g.ops]}
 
 
-def load(path: str) -> Graph:
-    """Read a graph written by ``repro.core.graph.save``."""
-    import msgpack  # not every machine that runs the port has it
+def save(graph: Graph, path: str) -> None:
+    """Write ``graph`` as ``repro.core.graph.save`` does, byte for byte:
+    :func:`graph_to_doc` packed by :mod:`repro_torch.core.packb`."""
+    with open(path, "wb") as f:
+        f.write(packb(graph_to_doc(graph)))
 
+
+def load(path: str) -> Graph:
+    """Read a graph written by :func:`save` or ``repro.core.graph.save``
+    (no msgpack needed)."""
     with open(path, "rb") as f:
-        doc = msgpack.unpackb(f.read(), raw=False, strict_map_key=False)
+        doc = Reader(f).value()
     return graph_from_doc(doc)
 
 

@@ -30,6 +30,13 @@ local ops of rank 0. Per record:
 * ``trace_s``: the wall time of the traced step (the reference's
   ``lower_s`` + ``compile_s``).
 
+The step keeps the reference's activation sharding
+(:func:`reference_layout`): the residual stream replicated over ``model``
+at every block boundary, as GSPMD keeps it, so that the FLOPs and
+collectives a device are those of the reference's split
+(``tests/test_torch_launch_parity.py`` holds them to the reference's on a
+small mesh).
+
 DTensor's rules differ between torch versions and have gaps: where one
 fails, :class:`_Gaps` runs the op another way (its inputs gathered, or on
 the local shards by hand), and the record names each such op in
@@ -250,6 +257,26 @@ def _local_einsum(eq, *ops):
                               shape=shape, stride=_stride_like(out, shape))
 
 
+def _row_parallel_input(x, w):
+    """``(x, w)`` of ``x @ w``, ``x`` on its local shard of the
+    contraction dimension (above autograd) where ``w`` is a row-parallel
+    weight (its rows sharded over a mesh dimension) and ``x`` is replicated
+    there: forward DTensor takes that shard itself, but its backward would
+    then compute the weight's gradient whole on every rank."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    if not isinstance(x, DTensor) or not isinstance(w, DTensor) \
+            or w.ndim != 2 or x.device_mesh != w.device_mesh:
+        return x, w
+    pls = list(x.placements)
+    for m, pl in enumerate(w.placements):
+        if pl == Shard(0) and pls[m] == Replicate() \
+                and x.shape[-1] % w.device_mesh.size(m) == 0:
+            pls[m] = Shard(x.ndim - 1)
+    if pls == list(x.placements):
+        return x, w
+    return x.redistribute(x.device_mesh, pls), w
+
+
 def _stride_like(local, shape):
     """Strides of a dense tensor of the global ``shape`` whose dimensions
     are laid out in the order of ``local``'s (einsum returns permuted
@@ -298,6 +325,19 @@ class _Gaps(torch.overrides.TorchFunctionMode):
       in-place write of DTensors into it is one DTensor op.
     * ``torch.einsum`` on local shards where :func:`_local_einsum` applies,
       and ``F.pad`` on the local shard (the padded dimensions gathered).
+    * A reshape that DTensor fails (a sharded dimension split into factors
+      the shards do not divide, e.g. 2 heads of a dimension sharded 4
+      ways) runs again with its input replicated over the last mesh
+      dimension, then the last two, ..., at this level, above autograd, so
+      that the backward pass takes its gradient's local shard again (a
+      retry below autograd would leave the gradient replicated, and the
+      weight gradient behind it would be computed whole on every rank).
+    * A row lookup ``table[idx]`` in the embedding table (``vocab_tables``,
+      set by :func:`reference_layout`), its rows sharded, runs as
+      ``F.embedding``, whose DTensor rule masks the rows each rank does
+      not hold and leaves a partial sum (one all-reduce of the rows
+      looked up, as GSPMD's); DTensor's rule for the index op gathers the
+      whole table first.
     * ``torch.gather`` from a tensor sharded (or a partial sum) along the
       gathered dimension: DTensor's masked partial for it fails when
       reduced (its mask is applied as an embedding's), so a partial sum
@@ -307,6 +347,9 @@ class _Gaps(torch.overrides.TorchFunctionMode):
 
     _FACTORIES = (torch.full, torch.zeros, torch.ones, torch.empty,
                   torch.arange)
+    _RESHAPES = (torch.reshape, torch.Tensor.reshape, torch.Tensor.view,
+                 torch.unflatten, torch.Tensor.unflatten)
+    _MATMULS = (torch.matmul, torch.Tensor.__matmul__, torch.Tensor.matmul)
     _INPLACE = (torch.Tensor.__setitem__,)
     _VIEWS = ("squeeze_", "unsqueeze_", "t_", "transpose_", "swapdims_",
               "swapaxes_", "as_strided_")
@@ -316,6 +359,9 @@ class _Gaps(torch.overrides.TorchFunctionMode):
         self.mesh = mesh
         self.used = set()
         self.errors = {}  # op -> the DTensor error that sent it elsewhere
+        self.above = 0  # > 0: an op retried here, not by :class:`_Retry`
+        self._gathered = {}  # (id, placements) -> (ref, gathered tensor)
+        self.vocab_tables = []  # embedding tables being read (``_embed``)
 
     def __torch_function__(self, func, types, args=(), kwargs=None):
         from torch.distributed.tensor import DTensor, Replicate
@@ -327,6 +373,13 @@ class _Gaps(torch.overrides.TorchFunctionMode):
             return DTensor.from_local(out, self.mesh,
                                       [Replicate()] * self.mesh.ndim,
                                       run_check=False)
+        if func is torch.Tensor.__getitem__:
+            out = self._lookup(*args)
+            if out is not None:
+                return out
+            args = (self._uncut(*args), args[1])
+        if func in self._MATMULS:
+            args = _row_parallel_input(*args)
         if func in (torch.gather, torch.Tensor.gather):
             out = self._gather(*args, **kwargs)
             if out is not None:
@@ -341,6 +394,8 @@ class _Gaps(torch.overrides.TorchFunctionMode):
             if out is not None:
                 return out
         name = getattr(func, "__name__", str(func))
+        if func in self._RESHAPES and isinstance(args[0], DTensor):
+            return self._reshape(func, name, args, kwargs)
         inplace = func in self._INPLACE or name.endswith("_") \
             or "out" in kwargs
         target = kwargs.get("out", args[0] if args else None) \
@@ -354,6 +409,33 @@ class _Gaps(torch.overrides.TorchFunctionMode):
                 f"{target.placements} without moving its data; write it "
                 "out of place")
         return out
+
+    def _reshape(self, func, name, args, kwargs):
+        from torch.distributed.tensor import Replicate
+        x, mesh = args[0], args[0].device_mesh
+        self.above += 1
+        try:
+            return func(*args, **kwargs)
+        except Exception as e:  # noqa: BLE001 — DTensor's: retried
+            if not _raised_in_dtensor(e):
+                raise
+            first_error = e
+        finally:
+            self.above -= 1
+        self.errors.setdefault(name, f"{type(first_error).__name__}: "
+                               f"{first_error}"[:300])
+        for first in range(mesh.ndim - 1, -1, -1):
+            pls = [Replicate() if m >= first and not pl.is_partial() else pl
+                   for m, pl in enumerate(x.placements)]
+            try:
+                out = func(x.redistribute(mesh, pls), *args[1:], **kwargs)
+            except Exception as e:  # noqa: BLE001
+                if not _raised_in_dtensor(e):
+                    raise
+                continue
+            self.used.add(f"{name} (gathered)")
+            return out
+        raise first_error
 
     def retry(self, func, args, kwargs, first_error, name, inplace):
         """``func`` (an aten op that DTensor failed) with its DTensor
@@ -388,6 +470,44 @@ class _Gaps(torch.overrides.TorchFunctionMode):
             lambda t: DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
                                          run_check=False)
             if isinstance(t, torch.Tensor) else t, out)
+
+    def _uncut(self, x, idx):
+        """``x``, replicated above autograd over the mesh dimensions that
+        shard a dimension ``x[idx]`` cuts (a slice that is not the whole
+        dimension, or an index): DTensor would gather it below autograd,
+        and its backward would then leave the gradient whole."""
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+        if not isinstance(x, DTensor):
+            return x
+        idx = idx if isinstance(idx, tuple) else (idx,)
+        if any(isinstance(i, torch.Tensor) or i is None for i in idx):
+            return x
+        if Ellipsis in idx:
+            at = idx.index(Ellipsis)
+            idx = idx[:at] + (slice(None),) * (x.ndim - len(idx) + 1) \
+                + idx[at + 1:]
+        cut = {d for d, i in enumerate(idx) if not (
+            isinstance(i, slice) and i.step in (None, 1)
+            and i.start in (None, 0)
+            and (i.stop is None or i.stop >= x.shape[d]))}
+        pls = [Replicate() if isinstance(pl, Shard) and pl.dim in cut else pl
+               for pl in x.placements]
+        if pls == list(x.placements):
+            return x
+        self.used.add("getitem (gathered)")
+        key = (id(x), tuple(pls))  # slices of one tensor: one gather,
+        if key not in self._gathered:  # held while the tensor lives
+            self._gathered[key] = (
+                weakref.ref(x, lambda _: self._gathered.pop(key, None)),
+                x.redistribute(x.device_mesh, pls))
+        return self._gathered[key][1]
+
+    def _lookup(self, table, idx):
+        from torch.distributed.tensor import Shard
+        if not any(table is t for t in self.vocab_tables) \
+                or Shard(0) not in getattr(table, "placements", ()):
+            return None
+        return torch.nn.functional.embedding(idx, table)
 
     @staticmethod
     def _pad(x, pad, mode="constant", value=None):
@@ -456,7 +576,7 @@ class _Retry(TorchDispatchMode):
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         from torch.distributed.tensor import DTensor
         kwargs = kwargs or {}
-        if not any(issubclass(t, DTensor) for t in types):
+        if self.gaps.above or not any(issubclass(t, DTensor) for t in types):
             return func(*args, **kwargs)
         try:
             return func(*args, **kwargs)
@@ -486,6 +606,210 @@ def recompute_under(mode):
         yield
     finally:
         TR.checkpoint = orig
+
+
+def stream_placements(x):
+    """The reference's placements of an activation of the residual stream
+    (B, ...): the batch sharded over the data axes (``pod``, ``data``)
+    where they divide it, as ``sharding.batch_spec`` shards the batch, and
+    replicated over ``model`` (GSPMD all-reduces a block's row-parallel
+    output there)."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = x.device_mesh
+    names = mesh.mesh_dim_names or ()
+    dp = [m for m, name in enumerate(names) if name in ("pod", "data")]
+    ways = math.prod(mesh.size(m) for m in dp)
+    batch = ways > 1 and x.ndim > 0 and x.shape[0] % ways == 0
+    return tuple(Shard(0) if batch and m in dp else Replicate()
+                 for m in range(mesh.ndim))
+
+
+class _Boundary(torch.autograd.Function):
+    """A block boundary of the residual stream: the activation, and in the
+    backward pass its gradient, on :func:`stream_placements` (Megatron's
+    ``f`` and ``g``: a partial sum is all-reduced over ``model`` where the
+    stream leaves a block forward, and where its gradient leaves one
+    backward)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return _on_stream(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _on_stream(grad)
+
+
+def _on_stream(x):
+    pls = stream_placements(x)
+    return x if pls == tuple(x.placements) else \
+        x.redistribute(x.device_mesh, pls)
+
+
+def _pin(x):
+    from torch.distributed.tensor import DTensor
+    return _Boundary.apply(x) if isinstance(x, DTensor) else x
+
+
+def _model_dim(t):
+    names = t.device_mesh.mesh_dim_names or ()
+    return names.index("model") if "model" in names else None
+
+
+def _over_batch(fn, batched, rest=()):
+    """``fn(*batched, *rest)`` with each rank of ``model`` on its own shard
+    of the batch (dim 0 of every tensor of ``batched``, replicated over
+    ``model`` and otherwise laid out alike), the outputs gathered over
+    ``model`` again: the split of a product DTensor cannot split by heads.
+    None where it does not apply (no DTensor, no ``model`` axis, a layout
+    other than replicated over it, a local batch it does not divide)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    lead = batched[0]
+    m = _model_dim(lead) if isinstance(lead, DTensor) else None
+    if m is None or lead.device_mesh.size(m) == 1:
+        return None
+    mesh, n = lead.device_mesh, lead.device_mesh.size(m)
+    if any(isinstance(t, DTensor) and t.placements[m] != Replicate()
+           for t in batched):
+        return None
+    local_b = lead.shape[0]
+    for d, pl in enumerate(lead.placements):
+        if d != m and pl == Shard(0):
+            local_b //= mesh.size(d)
+    if local_b % n:
+        return None
+    pls = list(lead.placements)
+    pls[m] = Shard(0)
+    split = [(t if isinstance(t, DTensor) else DTensor.from_local(
+        t, mesh, [Replicate()] * mesh.ndim, run_check=False))
+        .redistribute(mesh, pls) for t in batched]
+    out = fn(*split, *rest)
+
+    def gather(t):
+        if not isinstance(t, DTensor):
+            return t
+        back = list(t.placements)
+        back[m] = Replicate()
+        return t.redistribute(mesh, back)
+    return tuple(map(gather, out)) if isinstance(out, tuple) else gather(out)
+
+
+def _split_attention(sdpa):
+    """``attention._sdpa`` (q (B, T, H, hd), k / v (B, S, KV, hd)) with its
+    products split over ``model`` as the reference's are, where DTensor
+    cannot split them: with fewer key/value heads than ``model`` ranks,
+    the gathered k and v are repeated to the H query heads and each rank
+    keeps the heads of its query shard (Megatron's replicated key/value
+    heads); with query heads that ``model`` does not divide (the heads
+    gathered), by batch (:func:`_over_batch`)."""
+    def run(q, k, v, mask):
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+        m = _model_dim(q) if isinstance(q, DTensor) else None
+        if m is None or any(not isinstance(t, DTensor) or t.placements[m]
+                            != Replicate() for t in (k, v)):
+            return sdpa(q, k, v, mask)
+        if q.placements[m] == Shard(2):
+            B, S, KV, hd = k.shape
+            H = q.shape[2]
+            pls = list(k.placements)
+            pls[m] = Shard(2)
+
+            def heads(t):
+                t = t[:, :, :, None].expand(B, S, KV, H // KV, hd)
+                return t.reshape(B, S, H, hd).redistribute(k.device_mesh, pls)
+            return sdpa(q, heads(k), heads(v), mask)
+        out = _over_batch(sdpa, (q, k, v, mask))
+        return sdpa(q, k, v, mask) if out is None else out
+    return run
+
+
+def _split_ssd(ssd):
+    """``ssm.ssd_chunked`` split over ``model`` by batch
+    (:func:`_over_batch`): its heads arrive replicated, because the
+    in-projection's output is cut into z, x, B, C and dt at places its
+    ``model`` shards do not divide."""
+    def run(cfg, x, Bm, Cm, dt, A, h0=None):
+        # B and C broadcast over the heads (one group) split as one head,
+        # so that the backward gathers their gradients' one head, not H
+        heads = x.shape[2]
+        one = [t[:, :, :1] if t.stride(2) == 0 else t for t in (Bm, Cm)]
+
+        def core(x, Bm, Cm, dt, *h):
+            Bm, Cm = (t.expand(*t.shape[:2], heads, t.shape[3])
+                      for t in (Bm, Cm))
+            return ssd(cfg, x, Bm, Cm, dt, A, *h)
+        out = _over_batch(core, (x, *one, dt)
+                          + (() if h0 is None else (h0,)))
+        return ssd(cfg, x, Bm, Cm, dt, A, h0) if out is None else out
+    return run
+
+
+@contextlib.contextmanager
+def reference_layout(gaps):
+    """While active, the residual stream keeps the reference's placements
+    (:func:`stream_placements`) at the boundaries of the step's blocks:
+    where it enters the decoder stack (the embedding lookup, a VLM's
+    projected patches, an encoder's output), where each block (mixer,
+    cross-attention, MLP or MoE) reads it, and where the block's output
+    meets it. Forward, a row-parallel product's partial sum is all-reduced
+    over ``model``, as XLA's after a Megatron block; backward, so is the
+    gradient a column-parallel product sends back into the stream.
+
+    Without it, DTensor's own rules shard the stream on ``d_model`` over
+    ``model``: its rule for the lookup in a vocab-sharded embedding moves
+    the table to a ``d_model`` shard (``Shard(2)`` on the stream), each
+    residual add then reduce-scatters the block's partial sum onto that
+    shard, and every column-parallel product meets an activation sharded
+    (or, past a norm, partial) on its contraction dimension, where DTensor
+    gathers the weight and runs the whole product on each rank; backward,
+    the stream's gradient stays a partial sum and the products meet it the
+    same way. The attention core and the SSM scan are split over
+    ``model`` too (:func:`_split_attention`, :func:`_split_ssd`), and
+    the embedding lookup runs as ``F.embedding`` (``gaps.vocab_tables``).
+    The step's functions are wrapped (module
+    attributes, restored on exit); on plain tensors the wrappers change
+    nothing."""
+    from ..models import attention as AT
+    from ..models import moe as MO
+    from ..models import ssm as SS
+    from ..models import transformer as TR
+
+    def block(fn):
+        def run(cfg, p, x, *a, **k):
+            out = fn(cfg, p, _pin(x), *a, **k)
+            if isinstance(out, tuple):
+                return (_pin(out[0]),) + out[1:]
+            return _pin(out)
+        return run
+
+    def embed(fn):
+        def run(cfg, params, *a, **k):
+            gaps.vocab_tables.append(params["embed"])
+            try:
+                return _pin(fn(cfg, params, *a, **k))
+            finally:
+                gaps.vocab_tables.pop()
+        return run
+
+    def inputs(fn):
+        def run(*a, **k):
+            x, positions, memory, n_prefix = fn(*a, **k)
+            return _pin(x), positions, _pin(memory), n_prefix
+        return run
+
+    patches = [(M, "_assemble_inputs", inputs), (M, "_embed", embed),
+               (TR, "apply_mlp", block), (AT, "apply_gqa", block),
+               (AT, "apply_mla", block), (AT, "apply_cross", block),
+               (SS, "apply_ssm", block), (MO, "apply_moe", block),
+               (AT, "_sdpa", _split_attention), (SS, "ssd_chunked", _split_ssd)]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
+    for mod, name, wrap in patches:
+        setattr(mod, name, wrap(getattr(mod, name)))
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
 
 
 STRIDED_PENALTY = 1e6
@@ -703,7 +1027,8 @@ def trace_step(step, args, kind, mesh):
     costs = plain_shard_costs() if mesh.ndim >= 3 \
         else contextlib.nullcontext()
     with implicit_replication(), costs, recompute_under(gaps), \
-            meter.outside_propagation(), gaps, meter, _Retry(gaps):
+            reference_layout(gaps), meter.outside_propagation(), gaps, meter, \
+            _Retry(gaps):
         out = step(*args)
     secs = time.perf_counter() - t0
     arg_st = {t.untyped_storage()._cdata for t in arg_leaves}

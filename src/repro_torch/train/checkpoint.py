@@ -9,133 +9,31 @@ numpy's names (``"bfloat16"`` too, its bytes those of ``uint16``), data the
 leaf's raw little-endian bytes in C order. So each package reads the
 other's files.
 
-msgpack is not a dependency: the module carries an encoder and a decoder
-for the subset the document needs (array, map, str, bin, int), written to
-emit what ``msgpack.packb(doc, use_bin_type=True)`` emits. Both stream:
-:func:`save` writes one leaf at a time and :func:`restore` reads one at a
-time, so a state larger than host memory can be saved and restored.
+msgpack is not a dependency: the document is written and read with the
+port's subset of it (:mod:`repro_torch.core.packb`), which emits what
+``msgpack.packb(doc, use_bin_type=True)`` emits. Both stream: :func:`save`
+writes one leaf at a time and :func:`restore` reads one at a time, so a
+state larger than host memory can be saved and restored.
 """
 from __future__ import annotations
 
 import os
-import struct
 import tempfile
 
 import torch
+
+from ..core.packb import Reader as _Reader
+from ..core.packb import array_head as _array
+from ..core.packb import bin_head as _bin_head
+from ..core.packb import map_head as _map
+from ..core.packb import pack_int as _int
+from ..core.packb import pack_str as _str
 
 _DTYPES = {torch.float32: "float32", torch.float64: "float64",
            torch.float16: "float16", torch.bfloat16: "bfloat16",
            torch.int8: "int8", torch.int16: "int16", torch.int32: "int32",
            torch.int64: "int64", torch.uint8: "uint8", torch.bool: "bool"}
 _TORCH = {v: k for k, v in _DTYPES.items()}
-
-
-# -- the msgpack subset --------------------------------------------------------
-
-def _head(n: int, small_base, small_max, codes) -> bytes:
-    """The header of a container or string of length ``n``: a fix type
-    below ``small_max``, else the first of ``codes`` ((code, struct
-    format, limit), ...) that holds ``n``."""
-    if small_base is not None and n < small_max:
-        return bytes([small_base | n])
-    for code, fmt, limit in codes:
-        if n < limit:
-            return bytes([code]) + struct.pack(fmt, n)
-    raise ValueError(f"msgpack: length {n} too large")
-
-
-def _array(n):
-    return _head(n, 0x90, 16, ((0xdc, ">H", 1 << 16), (0xdd, ">I", 1 << 32)))
-
-
-def _map(n):
-    return _head(n, 0x80, 16, ((0xde, ">H", 1 << 16), (0xdf, ">I", 1 << 32)))
-
-
-def _str(s: str) -> bytes:
-    b = s.encode()
-    return _head(len(b), 0xa0, 32, ((0xd9, ">B", 1 << 8), (0xda, ">H", 1 << 16),
-                                    (0xdb, ">I", 1 << 32))) + b
-
-
-def _bin_head(n: int) -> bytes:
-    return _head(n, None, 0, ((0xc4, ">B", 1 << 8), (0xc5, ">H", 1 << 16),
-                              (0xc6, ">I", 1 << 32)))
-
-
-def _int(v: int) -> bytes:
-    if 0 <= v < 0x80:
-        return bytes([v])
-    if -32 <= v < 0:
-        return struct.pack(">b", v)
-    if v >= 0:
-        for code, fmt, limit in ((0xcc, ">B", 1 << 8), (0xcd, ">H", 1 << 16),
-                                 (0xce, ">I", 1 << 32), (0xcf, ">Q", 1 << 64)):
-            if v < limit:
-                return bytes([code]) + struct.pack(fmt, v)
-    for code, fmt, limit in ((0xd0, ">b", 1 << 7), (0xd1, ">h", 1 << 15),
-                             (0xd2, ">i", 1 << 31), (0xd3, ">q", 1 << 63)):
-        if v >= -limit:
-            return bytes([code]) + struct.pack(fmt, v)
-    raise ValueError(f"msgpack: int {v} out of range")
-
-
-class _Reader:
-    """Reads the subset from a binary file."""
-
-    _FIXED = {0xcc: ">B", 0xcd: ">H", 0xce: ">I", 0xcf: ">Q", 0xd0: ">b",
-              0xd1: ">h", 0xd2: ">i", 0xd3: ">q"}
-    _LEN = {0xdc: ">H", 0xdd: ">I", 0xde: ">H", 0xdf: ">I", 0xd9: ">B",
-            0xda: ">H", 0xdb: ">I", 0xc4: ">B", 0xc5: ">H", 0xc6: ">I"}
-
-    def __init__(self, f):
-        self.f = f
-
-    def _read(self, n: int) -> bytes:
-        b = self.f.read(n)
-        if len(b) != n:
-            raise ValueError("msgpack: truncated document")
-        return b
-
-    def _unpack(self, fmt):
-        return struct.unpack(fmt, self._read(struct.calcsize(fmt)))[0]
-
-    def head(self):
-        """(kind, value): ("int", v), or ("array" | "map" | "str" | "bin",
-        length)."""
-        c = self._read(1)[0]
-        if c < 0x80:
-            return "int", c
-        if c >= 0xe0:
-            return "int", c - 0x100
-        if c & 0xf0 == 0x90:
-            return "array", c & 0x0f
-        if c & 0xf0 == 0x80:
-            return "map", c & 0x0f
-        if c & 0xe0 == 0xa0:
-            return "str", c & 0x1f
-        if c in self._FIXED:
-            return "int", self._unpack(self._FIXED[c])
-        kind = {0xdc: "array", 0xdd: "array", 0xde: "map", 0xdf: "map",
-                0xd9: "str", 0xda: "str", 0xdb: "str", 0xc4: "bin",
-                0xc5: "bin", 0xc6: "bin"}.get(c)
-        if kind is None:
-            raise ValueError(f"msgpack: type byte 0x{c:02x} is outside the "
-                             "checkpoint subset")
-        return kind, self._unpack(self._LEN[c])
-
-    def value(self):
-        """One whole value (a ``bin`` as bytes)."""
-        kind, n = self.head()
-        if kind == "int":
-            return n
-        if kind == "str":
-            return self._read(n).decode()
-        if kind == "bin":
-            return self._read(n)
-        if kind == "array":
-            return [self.value() for _ in range(n)]
-        return {self.value(): self.value() for _ in range(n)}
 
 
 # -- trees ----------------------------------------------------------------------

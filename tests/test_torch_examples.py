@@ -27,10 +27,34 @@ def _run(args, code=None, env=()):
 def test_quickstart():
     out = _run(["torch_quickstart.py", "--device", "cpu"])
     assert "engines agree bit-exactly ✓" in out
+    assert "saved and reloaded graph runs bit-identically ✓" in out
     for head in ("quantized: 6 ops", "interpreter:", "compiled:", "kernels:",
                  "weights          :", "interpreter arena:",
                  "compiled peak    :", "folded constants :"):
         assert head in out, (head, out)
+
+
+def test_train_sine():
+    """The sine predictor trained, quantized and deployed: the table of
+    ``examples/train_sine.py`` (every MSE near the noise floor of
+    U(-0.1, 0.1), 0.0033), the int8 engines bit-identical, and the four
+    single-sample predictions."""
+    out = _run(["torch_train_sine.py", "--device", "cpu"],
+               env={"OMP_NUM_THREADS": "2"})
+    lines = out.splitlines()
+    assert lines[0] == "training the 1-16-16-1 sine MLP ..."
+    assert "(paper: 0.0154/0.1241)" in lines[1]
+    for row, name in zip(lines[2:5], ("float", "int8_interp",
+                                      "int8_compiled")):
+        got, mse, rmse = row.split()
+        assert got == name and float(mse) <= 0.006, row
+        assert abs(float(rmse) - float(mse) ** 0.5) < 1e-3, row
+    assert lines[5] == "int8 engines bit-identical: True"
+    preds = [ln for ln in lines if ln.startswith("predict sin(")]
+    assert len(preds) == 4
+    for ln in preds:  # "predict sin(0.50) = +0.471   (true +0.479)"
+        y, true = float(ln.split()[3]), float(ln.split()[5].rstrip(")"))
+        assert abs(y - true) < 0.1, ln
 
 
 def test_person_detection():

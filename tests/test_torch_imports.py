@@ -55,12 +55,14 @@ def test_paged_route_modules_import_alone(module):
     ("repro_torch.serve.resilience",), ("repro_torch.obs.__main__",),
     ("repro_torch.models.model",), ("repro_torch.serve.engine",),
     ("repro_torch.launch.serve",), ("repro_torch.train.checkpoint",),
-    ("repro_torch.launch.train",)],
+    ("repro_torch.launch.train",), ("repro_torch.core.packb",),
+    ("repro_torch.core.graph",)],
     ids=lambda m: "+".join(m))
 def test_serving_modules_import_alone(modules):
     """The serving stack and observability, the LLM serving path (model,
-    session, launcher) and the training path (checkpoints; the launcher,
-    which imports the optimizer and the step), imported first and alone,
+    session, launcher), the training path (checkpoints; the launcher,
+    which imports the optimizer and the step) and the graph file (its
+    msgpack subset), imported first and alone,
     load neither JAX, the JAX package nor msgpack (the scheduler and the resilience layer run on the port's
     engine; the card's machine has no msgpack)."""
     code = ("import importlib, sys\n"
