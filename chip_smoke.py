@@ -230,8 +230,42 @@ inside the graph.
               every rank within 5e-5 × max |y| of ``apply_moe`` on the
               card over every expert drawn the same way; the bytes each
               rank holds and the wall seconds printed (a gloo time, not
-              an NVLink one). ``python chip_smoke.py --launch`` runs it
-              alone.
+              an NVLink one). Gate 4, the dry run on the card's torch
+              held to the reference's records, committed in
+              ``tests/data/launch_ref.json`` (the card's torch is held to
+              data, not to a live JAX; ``PYTHONPATH=src python
+              tests/_torch_launch_data.py --full`` writes it from
+              ``src/repro`` on a machine with JAX, ~10 minutes, and
+              ``tests/test_torch_launch_parity.py`` / ``_cache.py`` hold
+              its records equal to the live reference's), with the bounds
+              of ``tests/_torch_launch_data.py`` (``parity``,
+              ``full_parity``), which the parity tests share: one process
+              (``chip_smoke.py --launch-ref OUT``, on the CPU, beside gate
+              1's, ``PYTHONHASHSEED=0`` as gate 1's: ROADMAP Queue 3 ac)
+              dry-runs its 30 reduced records (every ``reduced()`` config
+              × train / prefill / decode, (2, 4), seq 32 × batch 8), its
+              11 sequence-sharded-cache decode records (the cache policy
+              patched so that the cache shards its sequence over
+              ``model``, seq 128, a sliding window once) and the 30
+              reduced records again in float32; each within: FLOPs a
+              device 0.99–1.07 of the reference's dot FLOPs (≤ 1.01
+              dense) and ≤ 1.25 of its whole count, collective bytes ≤
+              2.0× (dense) / 2.5×, argument bytes equal but what
+              ``jax.jit`` drops; a float32 record's ``bytes_per_device``
+              at least 0.9 of XLA's bytes accessed less its layout ops
+              (``tests/_torch_hlo.py``; in bfloat16 XLA on the CPU widens
+              every activation to float32, so those ratios are printed
+              only). At full size, gate 1's records against the
+              reference's depth-corrected ones: deepseek-v2 and kimi-k2
+              ``train_4k`` FLOPs a device 0.99–1.07 of the reference's dot
+              FLOPs with its dots that carry the whole global batch
+              counted once over the data axes, those dots attention score
+              and value products (by einsum, or by the score tensor's
+              size where XLA named none), and the raw ratio within 3% of
+              its pinned 0.4720 / 0.7617; stablelm-3b ``decode_32k``
+              (2×16×16) collective bytes ≤ 2.0× the reference's. Every
+              ratio is printed before the gate fails. ``python
+              chip_smoke.py --launch`` runs the phase alone.
 18. graph   — graph files (``repro_torch.core.graph.save`` / ``load``,
               no msgpack), counted: sine, speech and person quantized on
               the card, each saved, loaded back (``msgpack`` never
@@ -2579,6 +2613,15 @@ LAUNCH_B, LAUNCH_T = 8, 64
 LAUNCH_DENSE = ("stablelm-3b", "starcoder2-3b", "internlm2-20b",
                 "chatglm3-6b")
 LAUNCH_FLOPS_TOL = 1.25
+# gate 4: the port's dry run on the card's torch against the reference's
+# records (tests/data/launch_ref.json; tests/_torch_launch_data.py writes
+# it from src/repro and holds the bounds, which the parity tests share)
+LAUNCH_REF = os.path.join("tests", "data", "launch_ref.json")
+LAUNCH_REF_SECTIONS = ("reduced", "sharded_cache", "float32")
+# the dry runs' processes hash strings with one seed: DTensor's choice of a
+# layout for the MoE combine follows Python's string hashing (ROADMAP
+# Queue 3 ac), and two runs of the phase should agree
+LAUNCH_ENV = {"PYTHONHASHSEED": "0", "CUDA_VISIBLE_DEVICES": ""}
 A2A_WORLD = 4                         # gate 3: ranks on the one card
 A2A_ARCH, A2A_B, A2A_T, A2A_CF = "deepseek-v2-236b", 2, 16, 16.0
 A2A_TOL = 5e-5                        # × max |y| of apply_moe on the card
@@ -2598,7 +2641,7 @@ def launch_records(out_dir) -> tuple:
             [sys.executable, "-m", "repro_torch.launch.dryrun", *argv,
              "--out", out_dir], cwd=ROOT,
             env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
-                     CUDA_VISIBLE_DEVICES=""),
+                     **LAUNCH_ENV),
             capture_output=True, text=True, timeout=600)
         walls.append(round(time.perf_counter() - t0, 3))
         check(proc.returncode == 0, f"dryrun {argv}: rc {proc.returncode}: "
@@ -2691,6 +2734,7 @@ def launch_sweep() -> dict:
                      "argument_plus_temp_over_card": round(
                          (mem["argument_bytes"] + mem["temp_bytes"]) / card, 4),
                      "flops_per_device": r["flops_per_device"],
+                     "bytes_per_device": r.get("bytes_per_device"),
                      "collective_bytes_total": r["collective_bytes_total"],
                      "collectives": {k: v["count"] for k, v in
                                      r["collectives"].items() if v["count"]},
@@ -2705,6 +2749,111 @@ def launch_sweep() -> dict:
             "temp_method": next(r["memory"]["temp_method"] for r in recs
                                 if r["status"] == "ok"),
             "process_wall_s": walls, "wall_s": round(wall, 3), "rows": rows}
+
+
+def launch_ref_main(argv) -> int:
+    """Gate 4's dry runs (``chip_smoke.py --launch-ref OUT``, CPU only):
+    the port's record (``_torch_launch_data.port_record``) of each record
+    of the reference file's ``LAUNCH_REF_SECTIONS``, each under its
+    section's setting, written to OUT."""
+    sys.path[:0] = [os.path.join(ROOT, "src"), os.path.join(ROOT, "tests")]
+    from _torch_launch_data import port_record
+    with open(os.path.join(ROOT, LAUNCH_REF)) as f:
+        data = json.load(f)
+    out = {}
+    for name in LAUNCH_REF_SECTIONS:
+        sec = data[name]
+        for ref in sec["records"]:
+            out["/".join((name, ref["arch"], ref["kind"], ref["tag"]))] = \
+                port_record(ref, sec)
+    with open(argv[0], "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def start_launch_ref(out) -> subprocess.Popen:
+    """:func:`launch_ref_main` in its own process, beside gate 1's."""
+    return subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--launch-ref", out],
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+                           **LAUNCH_ENV),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def launch_reference(proc, out, sweep, wall_t0) -> dict:
+    """Gate 4: the port's dry run on the card's torch held to the
+    reference's records, with ``tests/_torch_launch_data.py``'s bounds
+    (``parity``, ``full_parity``). Reduced, sequence-sharded-cache and
+    float32 records (:func:`launch_ref_main`): FLOPs a device within 0.99–1.07
+    of the reference's dot FLOPs (at most 1.01 for a dense config) and at
+    most 1.25 of its whole count, collective bytes at most 2.0× (dense) /
+    2.5×, argument bytes equal (less what ``jax.jit`` drops); a float32
+    record's bytes a device at least 0.9 of XLA's bytes accessed less its
+    layout ops (in bfloat16 XLA on the CPU widens every activation to
+    float32: those ratios are printed). Full size (gate 1's records): the
+    deepseek-v2 and kimi-k2 ``train_4k`` FLOPs a device within the band of
+    the reference's dot FLOPs with the dots that carry the whole global
+    batch (attention score and value products, checked by einsum) counted
+    once over the data axes, and the raw ratio within 3% of its pinned
+    value; stablelm-3b ``decode_32k`` collective bytes at most 2.0×.
+    Every ratio is printed; the gate fails after all are."""
+    from _torch_launch_data import full_parity, parity
+    from repro_torch.launch.mesh import MULTI_POD, SINGLE_POD
+    stdout, stderr = proc.communicate(timeout=600)
+    check(proc.returncode == 0, f"--launch-ref: rc {proc.returncode}: "
+                                f"{stdout[-2000:]}{stderr[-3000:]}")
+    with open(out) as f:
+        port = json.load(f)
+    with open(os.path.join(ROOT, LAUNCH_REF)) as f:
+        data = json.load(f)
+    rows, failed = [], []
+    for name in LAUNCH_REF_SECTIONS:
+        for ref in data[name]["records"]:
+            key = "/".join((name, ref["arch"], ref["kind"], ref["tag"]))
+            p = port[key]
+            if p["status"] != "ok":
+                failed.append(f"{key}: {p.get('traceback', '')[-800:]}")
+                continue
+            ratios, bad = parity(p, ref, bytes_gated=name == "float32")
+            row = {"record": key, **{k: round(v, 4) if isinstance(v, float)
+                                     else v for k, v in ratios.items()}}
+            if bad:
+                failed.append(f"{key}: {bad} {row}")
+            rows.append(row)
+    got = {(r["arch"], r["shape"], r["mesh"]): r for r in sweep["rows"]}
+    full = []
+    for ref in data["full"]["records"]:
+        key = (ref["arch"], ref["shape"], ref["mesh"])
+        p = got[key]
+        mshape, axes = MULTI_POD if ref["mesh"] == "multi" else SINGLE_POD
+        ways = math.prod(n for a, n in zip(axes, mshape)
+                         if a in ("pod", "data"))
+        ratios, bad = full_parity(p, ref, ways)
+        row = {"record": "/".join(key),
+               "flops_per_device": p["flops_per_device"],
+               "reference_dot_flops": ref["dot_flops_per_device"],
+               "reference_whole_batch_dot_flops":
+                   ref.get("dot_flops_whole_batch_per_device"),
+               "reference_whole_batch_dots": sorted(
+                   {d["einsum"] or f"unnamed, out {d['out']}"
+                    for d in ref.get("whole_batch_dots", [])}),
+               "collective_bytes": p["collective_bytes_total"],
+               "reference_collective_bytes": ref["collective_bytes_total"],
+               "bytes_per_device": p.get("bytes_per_device"),
+               "reference_bytes_per_device": ref["bytes_per_device"],
+               **{k: round(v, 4) for k, v in ratios.items()}}
+        if bad:
+            failed.append(f"full {bad} {row}")
+        full.append(row)
+    line = {"phase": "launch_reference", "reference": LAUNCH_REF,
+            "reference_jax": data["jax"], "records": len(rows),
+            "full_method": data["full"]["method"], "rows": rows,
+            "full": full, "failed": failed,
+            "wall_s": round(time.perf_counter() - wall_t0, 3)}
+    emit(line)
+    check(not failed, f"gate 4: {len(failed)} record(s) off the "
+                      f"reference's: {failed[:6]}")
+    return line
 
 
 def launch_card() -> dict:
@@ -2910,9 +3059,19 @@ def launch_main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke --launch: no CUDA device", file=sys.stderr)
         return 2
-    sys.path.insert(0, os.path.join(ROOT, "src"))
+    sys.path[:0] = [os.path.join(ROOT, "src"), os.path.join(ROOT, "tests")]
     t0 = time.perf_counter()
-    emit(launch_sweep())
+    out = os.path.join(ROOT, "build", "launch_ref_port.json")
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    proc = start_launch_ref(out)
+    try:
+        sweep = launch_sweep()
+        emit(sweep)
+        launch_reference(proc, out, sweep, t0)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
     emit(launch_card())
     emit(launch_a2a())
     emit({"phase": "launch_process", "wall_s":
@@ -2939,11 +3098,12 @@ def phase_launch(lines, process_s) -> None:
     """The lines of :func:`run_launch`'s process, and the phase's summary."""
     rows = {r["phase"]: r for r in (json.loads(ln) for ln in lines
                                     if ln.startswith("{"))}
-    want = ("launch_dryrun", "launch_card", "launch_a2a")
+    want = ("launch_dryrun", "launch_reference", "launch_card",
+            "launch_a2a")
     check(all(p in rows for p in want), f"launch: phases {sorted(rows)}")
     for p in want:
         emit(rows[p])
-    dr, card, a2a = (rows[p] for p in want)
+    dr, ref, card, a2a = (rows[p] for p in want)
     emit({"phase": "launch", "dryrun_records": dr["records"],
           "dryrun_ok": dr["ok"], "dryrun_wall_s": dr["wall_s"],
           "max_argument_plus_temp_over_card": max(
@@ -2951,6 +3111,16 @@ def phase_launch(lines, process_s) -> None:
           "train_4k_flops_over_analytic": {
               r["arch"]: r["flops_over_analytic"] for r in dr["rows"]
               if "flops_over_analytic" in r},
+          "reference_records": ref["records"],
+          "reference_max_flops_over_dots": max(
+              r["flops_over_dots"] for r in ref["rows"]),
+          "reference_max_collectives_over": max(
+              r["collectives_over"] for r in ref["rows"]),
+          "reference_min_bytes_over": min(
+              r["bytes_over"] for r in ref["rows"]),
+          "reference_full": {r["record"]: {
+              k: r[k] for k in ("flops_over_dots", "flops_over_split_dots",
+                                "collectives_over")} for r in ref["full"]},
           "card_argument_bytes": card["argument_bytes_on_card"],
           "card_temp_estimate_over_measured": card["estimate_over_measured"],
           "a2a_max_rel_err": max(max(c["max_abs_err_per_rank"])
@@ -3459,4 +3629,6 @@ if __name__ == "__main__":
         sys.exit(launch_main())
     if sys.argv[1:2] == ["--a2a"]:
         sys.exit(a2a_main(sys.argv[2:]))
+    if sys.argv[1:2] == ["--launch-ref"]:
+        sys.exit(launch_ref_main(sys.argv[2:]))
     sys.exit(main())

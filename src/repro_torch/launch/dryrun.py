@@ -21,6 +21,10 @@ local ops of rank 0. Per record:
   no buffer assignment to read;
 * ``flops_per_device``: the local ops' FLOPs by ``torch.utils.flop_counter``'s
   formulas (FlopCounterMode above DTensor would count global FLOPs);
+* ``bytes_per_device``: the bytes the local ops read and write, each op
+  its tensor operands and its outputs (XLA's ``HloCostAnalysis`` rule,
+  the reference's ``cost_analysis()["bytes accessed"]``, on a program
+  nothing fuses), named by ``bytes_method``;
 * ``collectives``: the ``_c10d_functional`` collectives the step dispatches
   (on a CPU mesh DTensor moves a shard from one dimension to another by
   an all-gather and a local slice, where on GPUs it would all-to-all),
@@ -78,6 +82,13 @@ _FUNCOL = {"all_gather_into_tensor": "all-gather",
            "all_to_all_single": "all-to-all"}
 TEMP_METHOD = ("live-bytes dispatch mode over rank 0's local shards: peak "
                "bytes of storages the step allocated, outputs included")
+BYTES_METHOD = ("dispatch mode over rank 0's local ops, unfused: each op's "
+                "tensor operands read (but one it only writes into) and its "
+                "outputs written; views and waits move nothing")
+# ops that overwrite their first argument without reading it
+_WRITE_ONLY = ("copy_", "fill_", "zero_")
+# views whose schema does not say so, and a collective's wait
+_NO_MOVE = ("_unsafe_view", "wait_tensor")
 
 
 def _nbytes(t) -> int:
@@ -85,17 +96,19 @@ def _nbytes(t) -> int:
 
 
 class StepMeter(TorchDispatchMode):
-    """Counts rank 0's local work under DTensor: FLOPs, collectives (count
-    and output bytes by kind) and live bytes of the storages allocated
-    inside the mode (a storage counts while the tensor an op made on it
-    lives; views of it are not followed). A DTensor op is handed back to
-    DTensor (``NotImplemented``), which dispatches its local ops here."""
+    """Counts rank 0's local work under DTensor: FLOPs, bytes read and
+    written (:data:`BYTES_METHOD`), collectives (count and output bytes by
+    kind) and live bytes of the storages allocated inside the mode (a
+    storage counts while the tensor an op made on it lives; views of it
+    are not followed). A DTensor op is handed back to DTensor
+    (``NotImplemented``), which dispatches its local ops here."""
 
     def __init__(self, exclude=()):
         super().__init__()
         from torch.utils.flop_counter import flop_registry
         self._flops = flop_registry
         self.flops = 0
+        self.bytes = 0
         self.ops = 0
         self.collectives = {k: {"count": 0, "bytes": 0} for k in _COLLECTIVES}
         self.live = 0
@@ -182,11 +195,33 @@ class StepMeter(TorchDispatchMode):
         if views is None:
             views = self._views[func] = any(
                 r.alias_info is not None for r in func._schema.returns)
+        self.bytes += self._moved(func, packet.__name__, args, kwargs, out,
+                                  views)
         if not views:  # a view holds its base's storage: counted there
             for t in _tensors(out):
                 if t.layout == torch.strided:
                     self._track(t)
         return out
+
+    @staticmethod
+    def _moved(func, name, args, kwargs, out, aliases):
+        """The bytes ``func`` reads and writes: its tensor operands (but
+        the argument a ``copy_`` / ``fill_`` / ``zero_`` or an ``out=``
+        overwrites) and its outputs. A view (outputs aliasing an input,
+        not written), ``_unsafe_view`` and a collective's wait move
+        nothing."""
+        if name in _NO_MOVE or (aliases and not any(
+                r.alias_info is not None and r.alias_info.is_write
+                for r in func._schema.returns)):
+            return 0
+        skip = set()
+        if name in _WRITE_ONLY and args:
+            skip.add(id(args[0]))
+        if "out" in kwargs:
+            skip.update(id(t) for t in _tensors(kwargs["out"]))
+        read = sum(_nbytes(t) for t in _tensors((args, list(kwargs.values())))
+                   if id(t) not in skip)
+        return read + sum(_nbytes(t) for t in _tensors(out))
 
 
 def _tensors(x):
@@ -424,18 +459,24 @@ class _Gaps(torch.overrides.TorchFunctionMode):
             self.above -= 1
         self.errors.setdefault(name, f"{type(first_error).__name__}: "
                                f"{first_error}"[:300])
-        for first in range(mesh.ndim - 1, -1, -1):
-            pls = [Replicate() if m >= first and not pl.is_partial() else pl
-                   for m, pl in enumerate(x.placements)]
-            try:
-                out = func(x.redistribute(mesh, pls), *args[1:], **kwargs)
-            except Exception as e:  # noqa: BLE001
-                if not _raised_in_dtensor(e):
-                    raise
-                continue
-            self.used.add(f"{name} (gathered)")
-            return out
-        raise first_error
+        try:
+            for first in range(mesh.ndim - 1, -1, -1):
+                pls = [Replicate() if m >= first and not pl.is_partial()
+                       else pl for m, pl in enumerate(x.placements)]
+                try:
+                    out = func(x.redistribute(mesh, pls), *args[1:], **kwargs)
+                except Exception as e:  # noqa: BLE001
+                    if not _raised_in_dtensor(e):
+                        raise
+                    continue
+                self.used.add(f"{name} (gathered)")
+                return out
+            raise first_error
+        finally:
+            # a frame holding an exception whose traceback holds the frame
+            # is a cycle: its tensors would live until the garbage
+            # collector ran, and the temp estimate would follow it
+            first_error = None
 
     def retry(self, func, args, kwargs, first_error, name, inplace):
         """``func`` (an aten op that DTensor failed) with its DTensor
@@ -445,22 +486,25 @@ class _Gaps(torch.overrides.TorchFunctionMode):
         mesh = self.mesh
         keep = args[:1] if inplace else ()
         rest = (args[1:] if inplace else args, kwargs)
-        for first in range(mesh.ndim - 1, -1, -1):
-            def rep(t):
-                if isinstance(t, DTensor):
-                    return t.redistribute(mesh, [
-                        Replicate() if m >= first else pl
-                        for m, pl in enumerate(t.placements)])
-                return t
-            rargs, rkw = torch.utils._pytree.tree_map(rep, rest)
-            try:
-                out = func(*keep, *rargs, **rkw)
-                self.used.add(f"{name} (replicated)")
-                return out
-            except Exception as e:  # noqa: BLE001
-                last = e
-        if inplace or "sharding strategy" not in str(last):
-            raise first_error
+        try:
+            for first in range(mesh.ndim - 1, -1, -1):
+                def rep(t):
+                    if isinstance(t, DTensor):
+                        return t.redistribute(mesh, [
+                            Replicate() if m >= first else pl
+                            for m, pl in enumerate(t.placements)])
+                    return t
+                rargs, rkw = torch.utils._pytree.tree_map(rep, rest)
+                try:
+                    out = func(*keep, *rargs, **rkw)
+                    self.used.add(f"{name} (replicated)")
+                    return out
+                except Exception as e:  # noqa: BLE001
+                    last = str(e)
+            if inplace or "sharding strategy" not in last:
+                raise first_error
+        finally:
+            first_error = None  # a cycle otherwise: see _reshape
         local = torch.utils._pytree.tree_map(
             lambda t: t.to_local() if isinstance(t, DTensor) else t,
             (rargs, rkw))
@@ -646,6 +690,39 @@ def _on_stream(x):
         x.redistribute(x.device_mesh, pls)
 
 
+class _GradLikeInput(torch.autograd.Function):
+    """The identity, whose backward lays the gradient out as the forward's
+    tensor was laid out (a replicated gradient of a sharded tensor is cut
+    to its shards, with no collective)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.placements = x.placements
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        from torch.distributed.tensor import DTensor
+        if isinstance(grad, DTensor) and grad.placements != ctx.placements:
+            return grad.redistribute(grad.device_mesh, ctx.placements)
+        return grad
+
+
+def _split_router(router_logits):
+    """``moe.router_logits`` whose gradient keeps the logits' layout: the
+    tokens sharded over the data axes, as the reference's backward keeps
+    them. Left to DTensor's rules, torch 2.13 brought the gradient back
+    from the top-k gates replicated, and the router's input gradient was
+    computed for every token of the global batch on each rank."""
+    def run(xf, router):
+        from torch.distributed.tensor import DTensor
+        out = router_logits(xf, router)
+        if isinstance(out, DTensor) and out.requires_grad:
+            return _GradLikeInput.apply(out)
+        return out
+    return run
+
+
 def _pin(x):
     from torch.distributed.tensor import DTensor
     return _Boundary.apply(x) if isinstance(x, DTensor) else x
@@ -680,9 +757,7 @@ def _over_batch(fn, batched, rest=()):
         return None
     pls = list(lead.placements)
     pls[m] = Shard(0)
-    split = [(t if isinstance(t, DTensor) else DTensor.from_local(
-        t, mesh, [Replicate()] * mesh.ndim, run_check=False))
-        .redistribute(mesh, pls) for t in batched]
+    split = [_replicated(t, mesh).redistribute(mesh, pls) for t in batched]
     out = fn(*split, *rest)
 
     def gather(t):
@@ -694,16 +769,94 @@ def _over_batch(fn, batched, rest=()):
     return tuple(map(gather, out)) if isinstance(out, tuple) else gather(out)
 
 
+def _replicated(t, mesh):
+    from torch.distributed.tensor import DTensor, Replicate
+    return t if isinstance(t, DTensor) else DTensor.from_local(
+        t, mesh, [Replicate()] * mesh.ndim, run_check=False)
+
+
+def _seq_dims(k):
+    """The mesh dimensions that shard ``k``'s sequence (dimension 1): a
+    cache that ``sharding.cache_spec`` shards flash-decode style."""
+    from torch.distributed.tensor import DTensor, Shard
+    if not isinstance(k, DTensor):
+        return []
+    return [m for m, pl in enumerate(k.placements) if pl == Shard(1)]
+
+
+def _softmax_across(groups):
+    """``attention._softmax`` over keys split between the ranks of
+    ``groups`` ((mesh, mesh dimension) pairs): the local maximum and sum
+    all-reduced, as flash-decoding combines its partial softmaxes."""
+    from torch.distributed import _functional_collectives as funcol
+
+    def softmax(scores):
+        top = scores.amax(-1, keepdim=True)
+        for g in groups:
+            top = funcol.all_reduce(top, "max", g)
+        e = torch.exp(scores - top)
+        total = e.sum(-1, keepdim=True)
+        for g in groups:
+            total = funcol.all_reduce(total, "sum", g)
+        return e / total
+    return softmax
+
+
+def _over_sequence(core, queries, keys, mask):
+    """``core(queries, keys, mask)`` (lists of DTensors) where the keys'
+    sequence is sharded (:func:`_seq_dims`; a decode over a
+    sequence-sharded cache): each rank attends over its own keys, on its
+    local shards, the softmax's maximum and sum and the weighted sums
+    all-reduced over the mesh dimensions that shard the sequence
+    (:func:`_softmax_across`; GSPMD's split of the same program). The
+    queries are replicated there and the mask cut to each rank's keys:
+    no rank gathers the cache or the scores. The output (B, ...) is laid
+    out as the keys' batch. None where the keys are laid out otherwise
+    than by batch and sequence."""
+    from torch.distributed import _functional_collectives as funcol
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from ..models import attention as AT
+    lead = keys[0]
+    mesh, dims = lead.device_mesh, _seq_dims(lead)
+    if any(pl not in (Replicate(), Shard(0), Shard(1))
+           or any(k.placements[m] != pl for k in keys)
+           for m, pl in enumerate(lead.placements)):
+        return None
+    base = [Replicate() if m in dims else pl
+            for m, pl in enumerate(lead.placements)]
+    cut = [Shard(2) if m in dims else pl for m, pl in enumerate(base)]
+    local_q = [_replicated(t, mesh).redistribute(mesh, base).to_local()
+               for t in queries]
+    local_m = _replicated(mask, mesh).redistribute(mesh, cut).to_local()
+    groups = [(mesh, m) for m in dims]
+    saved = AT._softmax
+    AT._softmax = _softmax_across(groups)
+    try:
+        out = core(local_q, [k.to_local() for k in keys], local_m)
+    finally:
+        AT._softmax = saved
+    for g in groups:
+        out = funcol.all_reduce(out, "sum", g)
+    return DTensor.from_local(funcol.wait_tensor(out), mesh, base,
+                              run_check=False)
+
+
 def _split_attention(sdpa):
     """``attention._sdpa`` (q (B, T, H, hd), k / v (B, S, KV, hd)) with its
     products split over ``model`` as the reference's are, where DTensor
-    cannot split them: with fewer key/value heads than ``model`` ranks,
-    the gathered k and v are repeated to the H query heads and each rank
-    keeps the heads of its query shard (Megatron's replicated key/value
-    heads); with query heads that ``model`` does not divide (the heads
-    gathered), by batch (:func:`_over_batch`)."""
+    cannot split them: over a sequence-sharded cache, by sequence
+    (:func:`_over_sequence`); with fewer key/value heads than ``model``
+    ranks, the gathered k and v are repeated to the H query heads and each
+    rank keeps the heads of its query shard (Megatron's replicated
+    key/value heads); with query heads that ``model`` does not divide (the
+    heads gathered), by batch (:func:`_over_batch`)."""
     def run(q, k, v, mask):
         from torch.distributed.tensor import DTensor, Replicate, Shard
+        if _seq_dims(k):
+            out = _over_sequence(lambda qs, ks, m: sdpa(*qs, *ks, m), [q],
+                                 [k, v], mask)
+            if out is not None:
+                return out
         m = _model_dim(q) if isinstance(q, DTensor) else None
         if m is None or any(not isinstance(t, DTensor) or t.placements[m]
                             != Replicate() for t in (k, v)):
@@ -720,6 +873,53 @@ def _split_attention(sdpa):
             return sdpa(q, heads(k), heads(v), mask)
         out = _over_batch(sdpa, (q, k, v, mask))
         return sdpa(q, k, v, mask) if out is None else out
+    return run
+
+
+def _split_mla(core):
+    """``attention._mla_attend`` split over ``model`` by heads on every
+    torch: q and q_rope, and per-head k and v, sharded over ``model`` on
+    their heads (a partial sum, as a product of DTensor's may leave one,
+    reduce-scattered onto them), the shared keys and the mask replicated
+    there, the batch on the data axes as the stream's; each rank then runs
+    the core on its own heads (its einsums on local shards,
+    :func:`_local_einsum`), and the scores are never all-reduced. Left to
+    DTensor's rules, the split depends on the torch version (torch 2.11
+    all-reduced whole score tensors). Over a sequence-sharded cache, by
+    sequence (:func:`_over_sequence`); over one sharded on its rank (the
+    absorbed form's compressed cache, its trailing dimension sharded), by
+    DTensor's rules (partial scores, all-reduced); with heads that
+    ``model`` does not divide, by batch (:func:`_over_batch`)."""
+    def run(q, q_rope, k, k_rope, v, mask, denom):
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+        m = _model_dim(q) if isinstance(q, DTensor) else None
+        if m is None or q.device_mesh.size(m) == 1:
+            return core(q, q_rope, k, k_rope, v, mask, denom)
+        if _seq_dims(k):
+            out = _over_sequence(
+                lambda qs, ks, mk: core(*qs, ks[0], ks[1], ks[2], mk, denom),
+                [q, q_rope], [k, k_rope, v], mask)
+            if out is not None:
+                return out
+        mesh = q.device_mesh
+        if k.ndim == 3 and isinstance(k, DTensor) \
+                and k.placements[m] != Replicate():
+            # the absorbed form over a cache sharded on its rank: the
+            # scores' partial sums, all-reduced, move less than the cache
+            return core(q, q_rope, k, k_rope, v, mask, denom)
+        if q.shape[2] % mesh.size(m):
+            out = _over_batch(core, (q, q_rope, k, k_rope, v, mask), (denom,))
+            return core(q, q_rope, k, k_rope, v, mask, denom) \
+                if out is None else out
+
+        def lay(t, heads):
+            t = _replicated(t, mesh)
+            pls = list(stream_placements(t))
+            pls[m] = Shard(2) if heads else Replicate()
+            return t.redistribute(mesh, pls)
+        return core(lay(q, True), lay(q_rope, True), lay(k, k.ndim == 4),
+                    lay(k_rope, False), lay(v, v.ndim == 4),
+                    lay(mask, False), denom)
     return run
 
 
@@ -744,6 +944,45 @@ def _split_ssd(ssd):
     return run
 
 
+def _write_on_shard(write, gaps):
+    """``attention.write_rows`` (rows (B, T, ...) into a cache (B, S, ...)
+    from ``start``) where the cache's sequence is sharded: each rank
+    writes, on its local shard, the rows that fall in it, with no
+    collective (GSPMD's partitioned ``dynamic_update_slice``: a select
+    over the local shard between it and the rows). The rows are
+    replicated over the mesh dimensions that shard the sequence and laid
+    out as the cache elsewhere. Slicing the cache instead cuts its sharded
+    dimension, and :meth:`_Gaps._uncut` would gather the whole cache."""
+    def run(cache, start, rows):
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+        from torch.distributed.tensor._utils import \
+            compute_local_shape_and_global_offset
+        if not isinstance(cache, DTensor) or Shard(1) not in cache.placements:
+            return write(cache, start, rows)
+        mesh = cache.device_mesh
+        pls = [Replicate() if pl == Shard(1) else pl
+               for pl in cache.placements]
+        _, offset = compute_local_shape_and_global_offset(
+            cache.shape, mesh, cache.placements)
+        write_local(cache.to_local(), offset[1], start,
+                    _replicated(rows, mesh).redistribute(mesh, pls).to_local())
+        gaps.used.add("write_rows (on its shard)")
+    return run
+
+
+def write_local(local, offset, start, rows):
+    """One rank's part of ``write_rows(cache, start, rows)``: ``local`` is
+    its shard of the cache's sequence, from row ``offset``; each of its
+    rows takes the row of ``rows`` that falls on it, or keeps its own (a
+    select over the shard: the same ops on every rank)."""
+    at = torch.arange(local.shape[1]) + (offset - start)
+    hit = ((at >= 0) & (at < rows.shape[1])).to(local.device)
+    picked = rows.index_select(
+        1, at.clamp(0, rows.shape[1] - 1).to(local.device))
+    local.copy_(torch.where(hit.view(1, -1, *(1,) * (local.ndim - 2)),
+                            picked, local))
+
+
 @contextlib.contextmanager
 def reference_layout(gaps):
     """While active, the residual stream keeps the reference's placements
@@ -763,9 +1002,11 @@ def reference_layout(gaps):
     (or, past a norm, partial) on its contraction dimension, where DTensor
     gathers the weight and runs the whole product on each rank; backward,
     the stream's gradient stays a partial sum and the products meet it the
-    same way. The attention core and the SSM scan are split over
-    ``model`` too (:func:`_split_attention`, :func:`_split_ssd`), and
-    the embedding lookup runs as ``F.embedding`` (``gaps.vocab_tables``).
+    same way. The attention cores and the SSM scan are split over
+    ``model`` too (:func:`_split_attention`, :func:`_split_mla`,
+    :func:`_split_ssd`), a cache write lands on the shard that holds its
+    rows (:func:`_write_on_shard`), and the embedding lookup runs as
+    ``F.embedding`` (``gaps.vocab_tables``).
     The step's functions are wrapped (module
     attributes, restored on exit); on plain tensors the wrappers change
     nothing."""
@@ -801,7 +1042,11 @@ def reference_layout(gaps):
                (TR, "apply_mlp", block), (AT, "apply_gqa", block),
                (AT, "apply_mla", block), (AT, "apply_cross", block),
                (SS, "apply_ssm", block), (MO, "apply_moe", block),
-               (AT, "_sdpa", _split_attention), (SS, "ssd_chunked", _split_ssd)]
+               (AT, "_sdpa", _split_attention),
+               (AT, "_mla_attend", _split_mla),
+               (SS, "ssd_chunked", _split_ssd),
+               (AT, "write_rows", lambda fn: _write_on_shard(fn, gaps)),
+               (MO, "router_logits", _split_router)]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
     for mod, name, wrap in patches:
         setattr(mod, name, wrap(getattr(mod, name)))
@@ -1110,6 +1355,8 @@ def run_one(arch: str, shape_name: str, multi_pod: bool, fsdp: str = "auto",
                         output_bytes=out_b, temp_bytes=meter.peak,
                         alias_bytes=alias_b, temp_method=TEMP_METHOD),
             flops_per_device=float(meter.flops),
+            bytes_per_device=float(meter.bytes),
+            bytes_method=BYTES_METHOD,
             local_ops=meter.ops,
             collectives=colls,
             collective_bytes_total=sum(v["bytes"] for v in colls.values()),

@@ -53,6 +53,13 @@ def apply_rope(x, positions, kind, theta):
 
 # -- shared core ---------------------------------------------------------------
 
+def _softmax(scores):
+    """Softmax over the keys (the last dimension): one function of the
+    module, which the dry run replaces where the keys are split between
+    ranks (``launch/dryrun.py``)."""
+    return torch.softmax(scores, dim=-1)
+
+
 def _sdpa(q, k, v, mask):
     """q (B,T,H,hd), k/v (B,S,KV,hd) with H = KV * rep; mask (B,T,S)
     boolean (True = attend). Scores in the input dtype, then float32."""
@@ -63,7 +70,7 @@ def _sdpa(q, k, v, mask):
     scores = torch.einsum("btkrh,bskh->bkrts", q, k).float()
     scores = scores / math.sqrt(hd)
     scores = torch.where(mask[:, None, None, :, :], scores, NEG_INF)
-    w = torch.softmax(scores, dim=-1).to(v.dtype)
+    w = _softmax(scores).to(v.dtype)
     out = torch.einsum("bkrts,bskh->btkrh", w, v)
     return out.reshape(B, T, H, hd)
 
@@ -77,6 +84,13 @@ def clamp_slot(pos, size, width):
     """The start index ``jax.lax.dynamic_update_slice`` writes ``width``
     rows at: ``pos`` clamped to ``[0, size - width]``."""
     return min(max(int(pos), 0), size - width)
+
+
+def write_rows(cache, start, rows):
+    """``cache[:, start:start + T] = rows`` in place (T = ``rows.shape[1]``):
+    a cache write along the sequence, the reference's
+    ``dynamic_update_slice``."""
+    cache[:, start:start + rows.shape[1]].copy_(rows)
 
 
 # -- GQA ----------------------------------------------------------------------
@@ -120,16 +134,16 @@ def apply_gqa(cfg, p, x, positions, mode, cache=None, pos=None,
         if mode == "prefill":
             W = cache["k"].shape[1]
             if W >= T:
-                cache["k"][:, :T].copy_(k)
-                cache["v"][:, :T].copy_(v)
+                write_rows(cache["k"], 0, k)
+                write_rows(cache["v"], 0, v)
             else:  # sliding window shorter than the prompt: keep the tail
-                cache["k"].copy_(k[:, T - W:])
-                cache["v"].copy_(v[:, T - W:])
+                write_rows(cache["k"], 0, k[:, T - W:])
+                write_rows(cache["v"], 0, v[:, T - W:])
     else:  # decode: T == 1, write at pos (mod window), attend over cache
         W = cache["k"].shape[1]
         slot = pos % W if cfg.sliding_window else clamp_slot(pos, W, 1)
-        cache["k"][:, slot:slot + 1].copy_(k)
-        cache["v"][:, slot:slot + 1].copy_(v)
+        write_rows(cache["k"], slot, k)
+        write_rows(cache["v"], slot, v)
         valid = torch.arange(W, device=x.device) <= min(pos, W - 1)
         mask = valid[None, None, :].expand(B, 1, W)
         out = _sdpa(q, cache["k"], cache["v"], mask)
@@ -172,6 +186,25 @@ def apply_cross(cfg, p, x, memory, mode, cache=None):
 
 # -- MLA (DeepSeek-V2) ---------------------------------------------------------
 
+def _mla_attend(q, q_rope, k, k_rope, v, mask, denom):
+    """MLA's attention core: the scores of the queries q (B, T, H, c)
+    against the keys k, per head (B, S, H, c) or one for every head
+    (B, S, c: the absorbed form's compressed cache), plus those of the
+    rotary queries q_rope (B, T, H, rp) against the shared rotary key
+    k_rope (B, S, rp), in float32 ÷ ``denom``, masked (mask (B, T, S),
+    True = attend), softmax; then the weighted sum of v, per head
+    (B, S, H, e) or shared (B, S, e): (B, T, H, e)."""
+    per_head = k.ndim == 4
+    scores = (torch.einsum("bthc,bshc->bhts" if per_head else
+                           "bthr,bsr->bhts", q, k)
+              + torch.einsum("bthc,bsc->bhts", q_rope, k_rope)) \
+        .float() / denom
+    scores = torch.where(mask[:, None, :, :], scores, NEG_INF)
+    w = _softmax(scores).to(v.dtype)
+    return torch.einsum("bhts,bshc->bthc" if v.ndim == 4 else
+                        "bhts,bsr->bthr", w, v)
+
+
 def _mla_absorbed(cfg, p, q_nope, q_rope, c_all, kr_all, mask):
     """Decode-time weight absorption (DeepSeek-V2 §2.1.2): W^UK folded into
     the query and W^UV into the output, so attention runs on the
@@ -183,12 +216,8 @@ def _mla_absorbed(cfg, p, q_nope, q_rope, c_all, kr_all, mask):
     w_k, w_v = wkv_b[..., :qk], wkv_b[..., qk:]
 
     q_eff = torch.einsum("bthc,rhc->bthr", q_nope, w_k)     # absorb W^UK
-    scores = (torch.einsum("bthr,bsr->bhts", q_eff, c_all)
-              + torch.einsum("bthc,bsc->bhts", q_rope, kr_all)) \
-        .float() / math.sqrt(qk + rp)
-    scores = torch.where(mask[:, None, :, :], scores, NEG_INF)
-    w = torch.softmax(scores, dim=-1).to(c_all.dtype)
-    ctx = torch.einsum("bhts,bsr->bthr", w, c_all)          # attend in r-space
+    ctx = _mla_attend(q_eff, q_rope, c_all, kr_all, c_all, mask,
+                      math.sqrt(qk + rp))                  # attend in r-space
     out = torch.einsum("bthr,rhv->bthv", ctx, w_v)          # absorb W^UV
     return mm(out.reshape(B, T, H * vh), p["wo"])
 
@@ -240,8 +269,8 @@ def apply_mla(cfg, p, x, positions, mode, cache=None, pos=None):
     if mode == "decode":
         S = cache["ckv"].shape[1]
         slot = clamp_slot(pos, S, T)
-        cache["ckv"][:, slot:slot + T].copy_(c_kv)
-        cache["krope"][:, slot:slot + T].copy_(k_rope)
+        write_rows(cache["ckv"], slot, c_kv)
+        write_rows(cache["krope"], slot, k_rope)
         c_all, kr_all = cache["ckv"], cache["krope"]
         mask = (torch.arange(S, device=x.device) <= pos)[None, None, :] \
             .expand(B, T, S)
@@ -252,17 +281,13 @@ def apply_mla(cfg, p, x, positions, mode, cache=None, pos=None):
         c_all, kr_all = c_kv, k_rope
         mask = causal_mask(positions, positions)
         if mode == "prefill":
-            cache["ckv"][:, :T].copy_(c_kv)
-            cache["krope"][:, :T].copy_(k_rope)
+            write_rows(cache["ckv"], 0, c_kv)
+            write_rows(cache["krope"], 0, k_rope)
 
     # expand compressed cache to per-head keys/values
     kv = mm(c_all, p["wkv_b"]).reshape(B, -1, H, qk + vh)
     k_nope, v = kv[..., :qk], kv[..., qk:]
 
-    scores = (torch.einsum("bthc,bshc->bhts", q_nope, k_nope)
-              + torch.einsum("bthc,bsc->bhts", q_rope, kr_all)) \
-        .float() / math.sqrt(qk + rp)
-    scores = torch.where(mask[:, None, :, :], scores, NEG_INF)
-    w = torch.softmax(scores, dim=-1).to(v.dtype)
-    out = torch.einsum("bhts,bshc->bthc", w, v).reshape(B, T, H * vh)
+    out = _mla_attend(q_nope, q_rope, k_nope, kr_all, v, mask,
+                      math.sqrt(qk + rp)).reshape(B, T, H * vh)
     return mm(out, p["wo"]), cache

@@ -30,13 +30,18 @@ def capacity(cfg, n_tokens: int) -> int:
     return max(c, cfg.top_k)
 
 
+def router_logits(xf, router):
+    """The router's logits (n, E) of the tokens xf (n, d), in float32."""
+    return xf.float() @ router.float()
+
+
 def _route_and_compute(cfg, p, xf, C):
     """Dispatch + expert FFN + combine for one token group xf (n, d)."""
     n, d = xf.shape
     E, k = cfg.n_experts, cfg.top_k
     dev = xf.device
 
-    logits = xf.float() @ p["router"].float()
+    logits = router_logits(xf, p["router"])
     probs = torch.softmax(logits, dim=-1)                      # (n, E)
     gate_w, gate_e = torch.topk(probs, k, dim=-1)              # (n, k)
     gate_w = gate_w / gate_w.sum(-1, keepdim=True)

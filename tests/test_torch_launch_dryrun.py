@@ -1,6 +1,7 @@
 """The port's dry run (``repro_torch.launch.dryrun``): meta DTensors over a
 fake process group, per-device bytes by shard arithmetic, FLOPs and
 collectives of rank 0's local ops, and the CLI's files."""
+import gc
 import json
 import math
 
@@ -9,6 +10,7 @@ import torch
 from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.distributed.tensor.experimental import implicit_replication
 
+from _torch_hlo import hlo_bytes
 from repro_torch.configs import InputShape, get_config
 from repro_torch.launch import dryrun as D
 from repro_torch.launch import mesh as TMESH
@@ -57,6 +59,117 @@ def test_meter_counts_known_collectives_and_local_flops():
     assert meter.flops == 2 * 4 * 64 * 32 + 2 * 4 * 32 * 64
 
 
+# (the port's function, the name of the reference's in jax.numpy, float32
+# argument shapes): steps with nothing for XLA to fuse
+BYTES_CASES = {
+    "matmul": (lambda x, w: x @ w, "matmul", [(64, 128), (128, 32)]),
+    "batched matmul": (lambda x, w: x @ w, "matmul",
+                       [(4, 16, 128), (128, 32)]),
+    "add": (torch.add, "add", [(64, 128), (64, 128)]),
+    "broadcast add": (torch.add, "add", [(64, 128), (128,)]),
+    "tanh": (torch.tanh, "tanh", [(64, 128)]),
+}
+
+
+@pytest.mark.parametrize("name", list(BYTES_CASES))
+def test_bytes_equal_xla_bytes_accessed_where_nothing_fuses(name):
+    """The meter's bytes (each op's operands read, its outputs written)
+    equal ``cost_analysis()["bytes accessed"]`` of the same step compiled
+    by XLA, exactly, where the step is one product or one elementwise op
+    (views, such as the reshapes of a batched matmul, move nothing)."""
+    port_fn, ref_name, shapes = BYTES_CASES[name]
+    jnp = pytest.importorskip("jax.numpy")
+    ref_fn = getattr(jnp, ref_name)
+    assert _port_bytes(port_fn, *shapes) == _xla_bytes(ref_fn, *shapes)
+    hlo = _xla_module(ref_fn, *shapes).as_text()
+    assert hlo_bytes(hlo) == hlo_bytes(hlo, layout=False) \
+        == _xla_bytes(ref_fn, *shapes)
+
+
+def _xla_module(fn, *shapes, dtype="float32"):
+    """``fn`` compiled by XLA for the CPU, as the reference's dry run
+    compiles (another backend counts its own bytes)."""
+    jax = pytest.importorskip("jax")
+    cpu = jax.sharding.SingleDeviceSharding(jax.devices("cpu")[0])
+    specs = (jax.ShapeDtypeStruct(s, dtype, sharding=cpu) for s in shapes)
+    return jax.jit(fn).lower(*specs).compile()
+
+
+def _xla_bytes(fn, *shapes, dtype="float32"):
+    return _xla_module(fn, *shapes, dtype=dtype) \
+        .cost_analysis()["bytes accessed"]
+
+
+def _port_bytes(fn, *shapes, dtype=torch.float32):
+    args = [torch.empty(s, dtype=dtype, device="meta") for s in shapes]
+    meter = D.StepMeter()
+    with meter:
+        fn(*args)
+    return meter.bytes
+
+
+def test_xla_copies_a_period_of_a_stacked_weight_the_port_views_it():
+    """Where the two counts part (``test_torch_launch_parity.py`` prints
+    them): a product with one period's slice of a stacked weight. XLA's
+    module copies the slice (read and written) before the product; the
+    port's step takes a view."""
+    x, w = (8, 128), (2, 128, 64)
+    port = _port_bytes(lambda x, w: x @ w[1], x, w)
+    assert port == 4 * (8 * 128 + 128 * 64 + 8 * 64)
+    assert _xla_bytes(lambda x, w: x @ w[1], x, w) == port + 2 * 4 * 128 * 64
+    # the recount by XLA's rules, and without the copy: the port's count
+    hlo = _xla_module(lambda x, w: x @ w[1], x, w).as_text()
+    assert hlo_bytes(hlo) == port + 2 * 4 * 128 * 64
+    assert hlo_bytes(hlo, layout=False) == port
+
+
+def test_xla_on_the_cpu_runs_a_bfloat16_product_in_float32():
+    """And a bfloat16 product: XLA on the CPU (the reference's dry run's
+    placeholder devices) converts each operand to float32 (read, written
+    twice as wide), multiplies in float32 and converts the result back:
+    five times the bytes the port's bfloat16 product moves."""
+    x, w = (8, 128), (128, 64)
+    port = _port_bytes(lambda x, w: x @ w, x, w, dtype=torch.bfloat16)
+    assert port == 2 * (8 * 128 + 128 * 64 + 8 * 64)
+    assert _xla_bytes(lambda x, w: x @ w, x, w, dtype="bfloat16") \
+        == 5 * port
+    # without the converts: the operands read at their own width, but the
+    # product still written in float32 (hence the float32 parity records)
+    hlo = _xla_module(lambda x, w: x @ w, x, w, dtype="bfloat16").as_text()
+    assert hlo_bytes(hlo) == 5 * port
+    assert hlo_bytes(hlo, layout=False) == port + 2 * 8 * 64
+
+
+@pytest.mark.parametrize("arch", ["chatglm3-6b", "kimi-k2-1t-a32b"])
+def test_temp_estimate_does_not_follow_the_garbage_collector(arch):
+    """The temp estimate (live storages while the step runs) is the same
+    whether Python's cycle collector never runs or runs every few
+    allocations: no tensor the meter counts is held by a reference cycle,
+    such as a retried op's frame holding the exception whose traceback
+    holds the frame (before: chatglm3-6b 2,167,836 B collected every few
+    allocations,
+    4,365,636 B never collected)."""
+    shape = InputShape("train_4k", 32, 8, "train")
+    temps = []
+    threshold = gc.get_threshold()
+    try:
+        for setting in ("often", "off"):
+            gc.collect()
+            if setting == "off":
+                gc.disable()
+            else:
+                gc.set_threshold(10, 1, 1)
+            rec = D.run_one(arch, shape.name, False,
+                            cfg=get_config(arch).reduced(), out_dir="",
+                            mesh_shape=MESH24, input_shape=shape)
+            assert rec["status"] == "ok", rec.get("traceback")
+            temps.append(rec["memory"]["temp_bytes"])
+    finally:
+        gc.enable()
+        gc.set_threshold(*threshold)
+    assert temps[0] == temps[1], temps
+
+
 def _assert_arg_bytes(rec, cfg, shape, mesh_shape):
     """The record's per-device argument bytes are the shard arithmetic of
     its specs."""
@@ -91,6 +204,8 @@ def test_run_one_reduced_on_a_fake_mesh(arch, kind, quantized):
     assert mem["temp_bytes"] > 0 and mem["temp_method"] == D.TEMP_METHOD
     assert 0 < mem["alias_bytes"] <= mem["output_bytes"]
     assert rec["flops_per_device"] > 0
+    assert rec["bytes_per_device"] > 0
+    assert rec["bytes_method"] == D.BYTES_METHOD
     assert rec["collective_bytes_total"] == sum(
         v["bytes"] for v in rec["collectives"].values())
 

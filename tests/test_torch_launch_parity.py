@@ -24,8 +24,20 @@ What is compared, and why:
   put in the compiled module: at most 2.0× for the dense attention
   configs, 2.5× for the others.
 * Argument bytes: equal, but where ``jax.jit`` drops an input the step
-  never reads (:func:`_dropped_by_jit`); the port's record counts every
-  argument.
+  never reads (``_torch_launch_data.dropped_by_jit``); the port's record
+  counts every argument.
+* Bytes a device, on the same records in float32: at least 0.9 of XLA's
+  bytes accessed less its layout ops (``tests/_torch_hlo.py``: the
+  converts, copies, slices, transposes and concatenations an eager step
+  runs as views or does not need). An unfused count cannot read less than
+  a fused one but by rounding. In bfloat16 XLA on the CPU widens every
+  activation to float32, which the port's step does not; there the ratios
+  are printed, and the recount is held to XLA's own count.
+* The committed reference records (``tests/data/launch_ref.json``, which
+  the card is held to) equal the live ones.
+
+The bounds are ``_torch_launch_data``'s (:func:`parity`), which
+``chip_smoke.py``'s ``launch`` phase applies on the card.
 
 The fault these hold (PR 20's dry run): DTensor's own rules sharded the
 residual stream on ``d_model`` over ``model``. Its rule for the lookup in
@@ -38,31 +50,17 @@ train / prefill, 9.1× its decode collectives). ``dryrun.reference_layout``
 now keeps the stream replicated over ``model`` at every block boundary, as
 GSPMD does.
 """
-import json
-import math
-import os
-import pathlib
-import subprocess
-import sys
-
 import pytest
 from torch.distributed.tensor import Replicate
 
+import _torch_launch_data as LD
 from repro_torch.configs import InputShape, get_config, list_configs
 from repro_torch.launch import dryrun as D
 
-ROOT = pathlib.Path(__file__).resolve().parents[1]
-MESH = ((2, 4), ("data", "model"))
-SEQ, BATCH = 32, 8
-KINDS = {"train": "train_4k", "prefill": "prefill_32k",
-         "decode": "decode_32k"}
+MESH = (LD.MESH, ("data", "model"))
+SEQ, BATCH = LD.SEQ, LD.BATCH
+KINDS = LD.KINDS
 ARCHS = list_configs()
-DENSE = ("stablelm-3b", "starcoder2-3b", "internlm2-20b", "chatglm3-6b")
-# the reference's runs, balanced by its compile times (jamba alone ~30 s)
-REF_GROUPS = (("jamba-v0.1-52b",),
-              ("deepseek-v2-236b", "kimi-k2-1t-a32b", "chatglm3-6b"),
-              ("whisper-small", "mamba2-780m", "starcoder2-3b"),
-              ("internvl2-26b", "stablelm-3b", "internlm2-20b"))
 RECORDS = [(a, k) for a in ARCHS for k in KINDS]
 
 
@@ -70,112 +68,151 @@ def _shape(kind):
     return InputShape(KINDS[kind], SEQ, BATCH, kind)
 
 
-def _port(arch, kind, mesh=MESH):
+def _port(arch, kind, mesh):
     rec = D.run_one(arch, KINDS[kind], False, cfg=get_config(arch).reduced(),
                     out_dir="", mesh_shape=mesh, input_shape=_shape(kind))
     assert rec["status"] == "ok", rec.get("traceback")
     return rec
 
 
+def _records(tmp_path_factory, section):
+    """(port, reference) records of a :data:`LD.SECTIONS` section, keyed
+    (arch, kind); the reference's made in subprocesses meanwhile."""
+    procs = LD.spawn(tmp_path_factory.mktemp("launch_ref"),
+                     float32=section == "float32")
+    try:
+        port = {(a, k): LD.port_record(
+            {"arch": a, "shape": KINDS[k], "kind": k, "tag": ""},
+            LD.SECTIONS[section]) for a, k in RECORDS}
+        ref = LD.collect(procs)
+    finally:
+        LD.end(procs)
+    ref = {(a, k): rec for (a, k, _), rec in ref.items()}
+    assert set(ref) == set(port)
+    for rec in port.values():
+        assert rec["status"] == "ok", rec.get("traceback")
+    return port, ref
+
+
 @pytest.fixture(scope="module")
 def records(tmp_path_factory):
-    out = tmp_path_factory.mktemp("launch_ref")
-    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
-           "JAX_PLATFORMS": "cpu"}
-    procs = [subprocess.Popen(
-        [sys.executable, str(ROOT / "tests" / "_torch_launch_ref.py"),
-         str(out / f"ref{i}.json"), *map(str, MESH[0]), str(SEQ), str(BATCH),
-         ",".join(group)], cwd=ROOT, env=env, stdout=subprocess.DEVNULL,
-        stderr=subprocess.PIPE, text=True)
-        for i, group in enumerate(REF_GROUPS)]
-    try:
-        port = {(a, k): _port(a, k) for a, k in RECORDS}
-        for p in procs:
-            _, err = p.communicate(timeout=300)
-            assert p.returncode == 0, err[-3000:]
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    ref = {}
-    for i in range(len(REF_GROUPS)):
-        for rec in json.loads((out / f"ref{i}.json").read_text()):
-            assert rec["status"] == "ok", rec.get("traceback")
-            ref[rec["arch"], rec["kind"]] = rec
-    assert set(ref) == set(port)
-    return port, ref
+    return _records(tmp_path_factory, "reduced")
+
+
+@pytest.fixture(scope="module")
+def records32(tmp_path_factory):
+    return _records(tmp_path_factory, "float32")
 
 
 @pytest.mark.parametrize("arch,kind", RECORDS)
 def test_flops_a_device_split_as_the_references(records, arch, kind):
     port, ref = records
-    p, r = port[arch, kind], ref[arch, kind]
-    to_dots = p["flops_per_device"] / r["dot_flops_per_device"]
-    to_all = p["flops_per_device"] / r["flops_per_device"]
-    assert 0.99 <= to_dots <= 1.07, (to_dots, to_all, p["fallback_ops"])
-    if arch in DENSE:
-        assert to_dots <= 1.01, to_dots  # every product split
-    assert to_all <= 1.25, to_all
+    ratios, failed = LD.parity(port[arch, kind], ref[arch, kind])
+    assert "flops" not in failed, (ratios, port[arch, kind]["fallback_ops"])
 
 
 @pytest.mark.parametrize("arch,kind", RECORDS)
 def test_collective_bytes_within_the_references(records, arch, kind):
     port, ref = records
-    p, r = port[arch, kind], ref[arch, kind]
-    ratio = p["collective_bytes_total"] / r["collective_bytes_total"]
-    assert ratio <= (2.0 if arch in DENSE else 2.5), (ratio, p["collectives"])
-    assert p["collective_bytes_total"] > 0
-
-
-def _dropped_by_jit(cfg, kind, path):
-    """Whether ``jax.jit`` drops the argument at ``path`` (argument index,
-    then keys) from the reference's step (``keep_unused=False``): it never
-    reads it. In decode: weights only the prompt uses (a VLM's projector,
-    whisper's encoder and its cross-attention key / value projections) and
-    the position where no layer reads it (an attention-free stack); in
-    prefill, cache leaves the prompt replaces whole (SSM states, whisper's
-    cross-attention cache, a VLM's cache, which its patches and the prompt
-    overrun)."""
-    arg, keys = path[0], path[1:]
-    if kind == "decode":
-        if arg == 0:
-            return keys[0] in ("projector", "encoder", "enc_pos",
-                               "enc_norm") or (
-                "cross" in keys and keys[-1] in ("wk", "wv"))
-        return arg == 3 and all(ld.mixer == "ssm" for ld in cfg.pattern())
-    if kind == "prefill" and arg == 2:
-        return keys[-1] in ("conv", "state") or "cross" in keys \
-            or cfg.modality == "vision"
-    return False
+    ratios, failed = LD.parity(port[arch, kind], ref[arch, kind])
+    assert "collectives" not in failed, (ratios,
+                                         port[arch, kind]["collectives"])
 
 
 @pytest.mark.parametrize("arch,kind", RECORDS)
 def test_argument_bytes_equal_the_references(records, arch, kind):
-    from repro_torch.launch import sharding as SH
     port, ref = records
-    cfg = get_config(arch).reduced()
-    step, args, _ = D.build_step(cfg, _shape(kind))
-    sizes = dict(zip(MESH[1], MESH[0]))
-    specs = D.arg_shardings(cfg, _shape(kind), args, sizes, False)
-    dropped = 0
+    p = port[arch, kind]
+    assert p["memory"]["argument_bytes"] \
+        == p["memory"]["argument_bytes_by_specs"]
+    ratios, failed = LD.parity(p, ref[arch, kind])
+    assert "argument_bytes" not in failed, (ratios, p["dropped_bytes"])
 
-    def walk(tree, spec, path):
-        nonlocal dropped
-        if isinstance(tree, dict):
-            for k in tree:
-                walk(tree[k], spec[k], path + (k,))
-        elif isinstance(tree, (list, tuple)) and not isinstance(tree, SH.Spec):
-            for i, (t, s) in enumerate(zip(tree, spec)):
-                walk(t, s, path + (i,))
-        elif _dropped_by_jit(cfg, kind, path):
-            shape = SH.local_shape(tree.shape, spec, sizes)
-            dropped += tree.dtype.itemsize * math.prod(shape)
-    walk(list(args), list(specs), ())
-    got = port[arch, kind]["memory"]["argument_bytes"]
-    assert got == port[arch, kind]["memory"]["argument_bytes_by_specs"]
-    assert got - dropped == ref[arch, kind]["memory"]["argument_bytes"], \
-        (got, dropped)
+
+@pytest.mark.parametrize("arch,kind", RECORDS)
+def test_committed_reference_records_are_the_live_ones(records, arch, kind):
+    """``tests/data/launch_ref.json``'s reduced records (what the card is
+    held to: it has no JAX) equal the reference's records made now."""
+    _, ref = records
+    committed = LD.keyed(LD.load()["reduced"])[arch, kind, ""]
+    assert LD.same_record(committed, ref[arch, kind])
+
+
+@pytest.mark.parametrize("arch,kind", RECORDS)
+def test_bytes_a_device_beside_the_references(records, arch, kind):
+    """bfloat16: the port's ``bytes_per_device`` beside XLA's ``bytes
+    accessed`` and beside that less its layout ops (printed), and the
+    reference's recount of its module by XLA's rules
+    (``_torch_hlo.hlo_bytes``, what the float32 bound rests on) equal to
+    XLA's own count within 1%. Unbounded here: on the CPU XLA runs the
+    bfloat16 step in float32, every activation twice as wide as the
+    port's, and copies each period's slice of a stacked weight (decode
+    0.27–0.60 of XLA's count, ``test_torch_launch_dryrun.py::test_xla_*``)."""
+    port, ref = records
+    p, r = port[arch, kind], ref[arch, kind]
+    assert p["bytes_method"] == D.BYTES_METHOD
+    ratios, _ = LD.parity(p, r)
+    print(f"{arch} {kind}: bytes a device {p['bytes_per_device']:.6g} / "
+          f"{r['bytes_per_device']:.6g} = {ratios['bytes_over']:.3f}; "
+          f"less layout {ratios['bytes_over_less_layout']:.3f}")
+    recount = r["bytes_recounted_per_device"] / r["bytes_per_device"]
+    assert abs(recount - 1) <= LD.RECOUNT_TOL, recount
+
+
+@pytest.mark.parametrize("arch,kind", RECORDS)
+def test_float32_bytes_a_device_at_least_the_references(records32, arch,
+                                                         kind):
+    """float32 parameters and cache in both packages: the port's bytes a
+    device at least 0.9 of XLA's bytes accessed less its layout ops
+    (printed, with the raw ratio): the port counts every op the reference
+    runs. Its recount equals XLA's count within 1%."""
+    port, ref = records32
+    p, r = port[arch, kind], ref[arch, kind]
+    ratios, failed = LD.parity(p, r, bytes_gated=True)
+    print(f"{arch} {kind} float32: bytes a device {p['bytes_per_device']:.6g}"
+          f" / {r['bytes_less_layout_per_device']:.6g} (less layout) = "
+          f"{ratios['bytes_over_less_layout']:.3f}; raw "
+          f"{ratios['bytes_over']:.3f}")
+    assert "bytes" not in failed, ratios
+    recount = r["bytes_recounted_per_device"] / r["bytes_per_device"]
+    assert abs(recount - 1) <= LD.RECOUNT_TOL, recount
+
+
+@pytest.mark.parametrize("arch,kind", RECORDS)
+def test_float32_records_within_the_parity_bounds(records32, arch, kind):
+    """The float32 records, which the card's gate also holds, within the
+    FLOPs, collective and argument bounds of the bfloat16 ones."""
+    port, ref = records32
+    ratios, failed = LD.parity(port[arch, kind], ref[arch, kind])
+    assert not failed, (failed, ratios)
+
+
+@pytest.mark.parametrize("arch,kind", RECORDS)
+def test_committed_float32_records_are_the_live_ones(records32, arch, kind):
+    _, ref = records32
+    committed = LD.keyed(LD.load()["float32"])[arch, kind, ""]
+    assert LD.same_record(committed, ref[arch, kind])
+
+
+def test_committed_sections_state_their_setting():
+    """Each section of the file states the setting the tests and the card
+    run it with."""
+    data = LD.load()
+    for name, setting in LD.SECTIONS.items():
+        assert {k: v for k, v in data[name].items() if k != "records"} \
+            == setting, name
+
+
+@pytest.mark.parametrize("arch", [a for a, what in LD.FULL_GATE.items()
+                                  if what == "flops"])
+def test_full_records_split_only_attention_by_the_whole_batch(arch):
+    """The full-size records' dots with a dimension of the global batch,
+    which the card's gate splits over the data ranks, are the reference's
+    attention score and value products, and nothing else."""
+    rec = next(r for r in LD.load()["full"]["records"] if r["arch"] == arch)
+    dots = rec["whole_batch_dots"]
+    assert dots and rec["dot_flops_whole_batch_per_device"] > 0
+    assert all(LD.attention_dot(d, rec) for d in dots), dots
 
 
 @pytest.mark.parametrize("kind", list(KINDS))
