@@ -89,8 +89,12 @@ inside the graph.
               device time by kernel and the device's busy share (over the
               profiled window, and over the same 5 calls unprofiled), the
               bucket-8 graph's replay time from CUDA events, and the H2D
-              copies of the calls from the profiler's trace: one per call,
-              of the logical rows (8 × 96 × 96 × 1 = 73,728 B);
+              copies of the 5 calls: the engine's counters
+              (``h2d_copies`` / ``h2d_bytes``) must read exactly one a
+              call, of the logical rows (8 × 96 × 96 × 1 = 73,728 B); the
+              profiler's trace must hold no copy of another size and no
+              more copies than the counters (it drops an event now and
+              then: how many it lost is printed, and does not fail);
 11. pool    — a model's graphs share one memory pool: person's buckets 1,
               2, 4, 8 captured in that order; for each pair (earlier e,
               later l) the raw sequence replay l, replay e, read l's
@@ -228,10 +232,14 @@ inside the graph.
               seeded by (seed, e)), B 2 × 16 tokens at capacity factor
               16, and kimi-k2's ``reduced()`` at capacity factor 16: y on
               every rank within 5e-5 × max |y| of ``apply_moe`` on the
-              card over every expert drawn the same way; the bytes each
-              rank holds and the wall seconds printed (a gloo time, not
-              an NVLink one). Gate 4, the dry run on the card's torch
-              held to the reference's records, committed in
+              card over every expert drawn the same way; ``apply_moe``
+              twice, and each rank's ``moe_all_to_all`` twice, the same
+              bits (the combine sums each token's picks in one order); the
+              elements that the ``index_add`` combine it replaced changes
+              between two runs on the same expert outputs (atomics),
+              the bytes each rank holds and the wall seconds printed (a
+              gloo time, not an NVLink one). Gate 4, the dry run on the
+              card's torch held to the reference's records, committed in
               ``tests/data/launch_ref.json`` (the card's torch is held to
               data, not to a live JAX; ``PYTHONPATH=src python
               tests/_torch_launch_data.py --full`` writes it from
@@ -241,8 +249,7 @@ inside the graph.
               of ``tests/_torch_launch_data.py`` (``parity``,
               ``full_parity``), which the parity tests share: one process
               (``chip_smoke.py --launch-ref OUT``, on the CPU, beside gate
-              1's, ``PYTHONHASHSEED=0`` as gate 1's: ROADMAP Queue 3 ac)
-              dry-runs its 30 reduced records (every ``reduced()`` config
+              1's) dry-runs its 30 reduced records (every ``reduced()`` config
               × train / prefill / decode, (2, 4), seq 32 × batch 8), its
               11 sequence-sharded-cache decode records (the cache policy
               patched so that the cache shards its sequence over
@@ -264,8 +271,14 @@ inside the graph.
               size where XLA named none), and the raw ratio within 3% of
               its pinned 0.4720 / 0.7617; stablelm-3b ``decode_32k``
               (2×16×16) collective bytes ≤ 2.0× the reference's. Every
-              ratio is printed before the gate fails. ``python
-              chip_smoke.py --launch`` runs the phase alone.
+              ratio is printed before the gate fails. Gate 5, the hash
+              seed: two processes on the CPU, beside gate 1's, dry-run the
+              five MoE records of ``_torch_launch_data.HASHSEED_RECORDS``
+              (reduced, (2, 4), seq 32 × batch 8) under
+              ``PYTHONHASHSEED`` 0 and 7; their FLOPs, bytes, collectives
+              by kind and memory must equal each other's and gate 4's
+              records of the same five (made under no pinned seed).
+              ``python chip_smoke.py --launch`` runs the phase alone.
 18. graph   — graph files (``repro_torch.core.graph.save`` / ``load``,
               no msgpack), counted: sine, speech and person quantized on
               the card, each saved, loaded back (``msgpack`` never
@@ -313,6 +326,7 @@ BUCKETS = (1, 8)
 SERVE_BATCHES = (1, 3, 8)
 MAX_BATCH = 8
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
+H2D_ROWS_B8 = 8 * 96 * 96 * 1   # person's logical rows, one bucket-8 call
 INT8_OPS_PER_S = 1.979e15   # H100 SXM dense int8 tensor-core peak
 FLOPS_PER_S = {"float32": 67e12,     # H100 SXM float32, CUDA cores
                "bfloat16": 989e12}   # H100 SXM dense bf16 tensor-core peak
@@ -2618,10 +2632,7 @@ LAUNCH_FLOPS_TOL = 1.25
 # it from src/repro and holds the bounds, which the parity tests share)
 LAUNCH_REF = os.path.join("tests", "data", "launch_ref.json")
 LAUNCH_REF_SECTIONS = ("reduced", "sharded_cache", "float32")
-# the dry runs' processes hash strings with one seed: DTensor's choice of a
-# layout for the MoE combine follows Python's string hashing (ROADMAP
-# Queue 3 ac), and two runs of the phase should agree
-LAUNCH_ENV = {"PYTHONHASHSEED": "0", "CUDA_VISIBLE_DEVICES": ""}
+LAUNCH_ENV = {"CUDA_VISIBLE_DEVICES": ""}
 A2A_WORLD = 4                         # gate 3: ranks on the one card
 A2A_ARCH, A2A_B, A2A_T, A2A_CF = "deepseek-v2-236b", 2, 16, 16.0
 A2A_TOL = 5e-5                        # × max |y| of apply_moe on the card
@@ -2856,6 +2867,51 @@ def launch_reference(proc, out, sweep, wall_t0) -> dict:
     return line
 
 
+def start_launch_hashseed(work) -> list:
+    """Gate 5's processes (``_torch_launch_data.spawn_hashseed``), one a
+    seed of ``HASHSEEDS``, beside gate 1's: [(seed, process, output)]."""
+    from _torch_launch_data import HASHSEEDS, spawn_hashseed
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"), **LAUNCH_ENV)
+    return [(seed, spawn_hashseed(seed, out, env), out)
+            for seed in HASHSEEDS
+            for out in [os.path.join(work, f"hashseed{seed}.json")]]
+
+
+def launch_hashseed(procs, ref_out, wall_t0) -> dict:
+    """Gate 5: the MoE records of ``HASHSEED_RECORDS`` made under each
+    ``PYTHONHASHSEED`` of ``HASHSEEDS`` and gate 4's (no seed pinned), the
+    same in every number of ``HASHSEED_COMPARED``."""
+    from _torch_launch_data import HASHSEED_COMPARED, hashseed_differences
+    runs = {}
+    for seed, proc, out in procs:
+        _, err = proc.communicate(timeout=600)
+        check(proc.returncode == 0, f"hashseed {seed}: rc {proc.returncode}"
+                                    f": {err[-3000:]}")
+        with open(out) as f:
+            runs[f"PYTHONHASHSEED={seed}"] = json.load(f)
+    with open(ref_out) as f:
+        port = json.load(f)
+    first = next(iter(runs.values()))
+    runs["gate 4, unpinned"] = {
+        key: {k: port["/".join(("reduced", *key.split("/"), ""))][k]
+              for k in HASHSEED_COMPARED} for key in first}
+    diffs = {name: hashseed_differences(first, run)
+             for name, run in runs.items()}
+    line = {"phase": "launch_hashseed", "runs": sorted(runs),
+            "records": {key: {"flops_per_device": r["flops_per_device"],
+                              "bytes_per_device": r["bytes_per_device"],
+                              "collective_bytes_total":
+                                  r["collective_bytes_total"],
+                              "temp_bytes": r["memory"]["temp_bytes"]}
+                        for key, r in first.items()},
+            "differences": {k: v for k, v in diffs.items() if v},
+            "wall_s": round(time.perf_counter() - wall_t0, 3)}
+    emit(line)
+    check(not line["differences"], "gate 5: the MoE records follow the "
+                                   f"hash seed: {line['differences']}")
+    return line
+
+
 def launch_card() -> dict:
     """Gate 2: ``build_step`` and ``arg_shardings`` on a (1, 1) mesh, then
     the same specs made on the card and the step run once."""
@@ -2973,10 +3029,13 @@ def a2a_main(argv) -> int:
         with torch.no_grad():
             y, aux = moe_all_to_all(cfg, p, a2a_input(cfg, "cuda"), mesh)
         torch.cuda.synchronize()
+        call_s = time.perf_counter() - t0
+        with torch.no_grad():
+            again, _ = moe_all_to_all(cfg, p, a2a_input(cfg, "cuda"), mesh)
         out[name] = {"y": y.cpu(), "aux": float(aux), "bytes_held": held,
-                     "call_s": time.perf_counter() - t0,
+                     "call_s": call_s, "same_bits": torch.equal(y, again),
                      "backend": dist.get_backend(mesh.get_group("model"))}
-        del p, y
+        del p, y, again
         torch.cuda.empty_cache()
     torch.save(out, os.path.join(work, f"rank{rank}.pt"))
     dist.destroy_process_group()
@@ -2988,12 +3047,49 @@ def tree_bytes(tree) -> int:
     return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
 
 
+class combine_inputs:
+    """Within ``with combine_inputs() as got:``, each call of
+    ``moe.combine`` appends its (expert outputs, slots) to ``got``."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.moe, self.orig = moe, moe.combine
+        got, orig = [], self.orig
+
+        def kept(ye, slots):
+            got.append((ye, slots))
+            return orig(ye, slots)
+
+        moe.combine = kept
+        return got
+
+    def __exit__(self, *exc):
+        self.moe.combine = self.orig
+        return False
+
+
+def index_add_combine(ye, slots):
+    """The combine ``moe.combine`` replaced: an ``index_add`` of the table
+    ``ye`` (bins, capacity, d) over its slots' token ids (from ``slots``,
+    :func:`~repro_torch.models.moe.pick_slots`)."""
+    n, k = slots.shape
+    d = ye.shape[-1]
+    tokens = torch.full((ye.shape[0] * ye.shape[1] + 1,), n,
+                        device=ye.device).index_put(
+        (slots.reshape(-1),), torch.arange(n, device=ye.device)
+        .repeat_interleave(k))[:-1]
+    return torch.zeros((n + 1, d), dtype=ye.dtype, device=ye.device) \
+        .index_add(0, tokens, ye.reshape(-1, d))[:n]
+
+
 def launch_a2a() -> dict:
     """Gate 3: ``A2A_WORLD`` processes on the card run ``moe_all_to_all``
     over gloo; every rank's y held against ``apply_moe`` on the card with
-    every expert drawn the same way."""
+    every expert drawn the same way, and each of them the same bits on two
+    runs; the elements the ``index_add`` combine changes between two runs
+    on ``apply_moe``'s expert outputs, printed."""
     import tempfile
-    from repro_torch.models.moe import apply_moe
+    from repro_torch.models.moe import apply_moe, combine
     work = tempfile.mkdtemp(prefix="a2a_", dir=os.path.join(ROOT, "build"))
     t0 = time.perf_counter()
     procs = [subprocess.Popen(
@@ -3018,8 +3114,17 @@ def launch_a2a() -> dict:
     cases = []
     for name, cfg in a2a_cases():
         p = a2a_params(cfg, range(cfg.n_experts), "cuda")
-        with torch.no_grad():
+        with torch.no_grad(), combine_inputs() as kept:
             y_ref, aux_ref = apply_moe(cfg, p, a2a_input(cfg, "cuda"))
+            again, _ = apply_moe(cfg, p, a2a_input(cfg, "cuda"))
+            ye, slots = kept[0]
+            old = [index_add_combine(ye, slots) for _ in range(2)]
+            new = combine(ye, slots)
+        same = torch.equal(y_ref, again)
+        ranks_same = [g[name]["same_bits"] for g in got]
+        check(same and all(ranks_same),
+              f"a2a {name}: two runs differ: apply_moe {same}, ranks "
+              f"{ranks_same}")
         y_ref = y_ref.cpu()
         scale = float(y_ref.abs().max())
         errs = [float((g[name]["y"] - y_ref).abs().max()) for g in got]
@@ -3039,9 +3144,16 @@ def launch_a2a() -> dict:
                       "tol": A2A_TOL, "aux_per_rank": [g[name]["aux"]
                                                        for g in got],
                       "aux_apply_moe": float(aux_ref),
+                      "same_bits_apply_moe": same,
+                      "same_bits_per_rank": ranks_same,
+                      "index_add_elements_changed_between_runs": int(
+                          (old[0] != old[1]).sum()),
+                      "index_add_max_abs_diff_from_combine": max(
+                          float((o - new).abs().max()) for o in old),
+                      "combine_elements": new.numel(),
                       "call_s_per_rank": [round(g[name]["call_s"], 3)
                                           for g in got]})
-        del p
+        del p, again, kept, ye, old, new
         torch.cuda.empty_cache()
     return {"phase": "launch_a2a", "ranks": A2A_WORLD,
             "backend": got[0][cases[0]["case"]]["backend"],
@@ -3055,7 +3167,7 @@ def launch_a2a() -> dict:
 
 def launch_main() -> int:
     """The ``launch`` phase's own process (``chip_smoke.py --launch``):
-    gates 1-3, one JSON line each."""
+    gates 1-5, one JSON line each."""
     if not torch.cuda.is_available():
         print("chip_smoke --launch: no CUDA device", file=sys.stderr)
         return 2
@@ -3064,14 +3176,17 @@ def launch_main() -> int:
     out = os.path.join(ROOT, "build", "launch_ref_port.json")
     os.makedirs(os.path.dirname(out), exist_ok=True)
     proc = start_launch_ref(out)
+    seeds = start_launch_hashseed(os.path.dirname(out))
     try:
         sweep = launch_sweep()
         emit(sweep)
         launch_reference(proc, out, sweep, t0)
+        launch_hashseed(seeds, out, t0)
     finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait()
+        for p in [proc] + [p for _, p, _ in seeds]:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
     emit(launch_card())
     emit(launch_a2a())
     emit({"phase": "launch_process", "wall_s":
@@ -3098,12 +3213,12 @@ def phase_launch(lines, process_s) -> None:
     """The lines of :func:`run_launch`'s process, and the phase's summary."""
     rows = {r["phase"]: r for r in (json.loads(ln) for ln in lines
                                     if ln.startswith("{"))}
-    want = ("launch_dryrun", "launch_reference", "launch_card",
-            "launch_a2a")
+    want = ("launch_dryrun", "launch_reference", "launch_hashseed",
+            "launch_card", "launch_a2a")
     check(all(p in rows for p in want), f"launch: phases {sorted(rows)}")
     for p in want:
         emit(rows[p])
-    dr, ref, card, a2a = (rows[p] for p in want)
+    dr, ref, seeds, card, a2a = (rows[p] for p in want)
     emit({"phase": "launch", "dryrun_records": dr["records"],
           "dryrun_ok": dr["ok"], "dryrun_wall_s": dr["wall_s"],
           "max_argument_plus_temp_over_card": max(
@@ -3123,8 +3238,16 @@ def phase_launch(lines, process_s) -> None:
                                 "collectives_over")} for r in ref["full"]},
           "card_argument_bytes": card["argument_bytes_on_card"],
           "card_temp_estimate_over_measured": card["estimate_over_measured"],
+          "hashseed_runs": seeds["runs"],
+          "hashseed_differences": seeds["differences"],
           "a2a_max_rel_err": max(max(c["max_abs_err_per_rank"])
                                  / c["max_abs_y"] for c in a2a["cases"]),
+          "a2a_same_bits": all(c["same_bits_apply_moe"]
+                               and all(c["same_bits_per_rank"])
+                               for c in a2a["cases"]),
+          "index_add_elements_changed_between_runs": {
+              c["case"]: c["index_add_elements_changed_between_runs"]
+              for c in a2a["cases"]},
           "a2a_wall_s": a2a["wall_s"], "process_s": round(process_s, 3)})
 
 
@@ -3544,20 +3667,28 @@ def main() -> int:
         cm.predict_q_many(xq, max_batch=MAX_BATCH)
     torch.cuda.synchronize()
     plain_window_ms = (time.perf_counter() - t0) * 1e3
+    counted = (cm.h2d_copies, cm.h2d_bytes)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(5):
             cm.predict_q_many(xq, max_batch=MAX_BATCH)
         torch.cuda.synchronize()
         window_ms = (time.perf_counter() - t0) * 1e3
+    counted = (cm.h2d_copies - counted[0], cm.h2d_bytes - counted[1])
     by_kernel = device_ms_by_kernel(prof)[0]
     device_ms = sum(by_kernel.values())
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]
     h2d = h2d_copies(prof)
-    check(h2d["bytes"] == [8 * 96 * 96 * 1] * 5,
-          f"H2D copies of 5 bucket-8 calls: {h2d}")
+    check(counted == (5, 5 * H2D_ROWS_B8),
+          f"the engine's H2D copies of 5 bucket-8 calls: {counted}")
+    check(all(b == H2D_ROWS_B8 for b in h2d["bytes"])
+          and len(h2d["bytes"]) <= counted[0],
+          f"the trace's H2D copies of 5 bucket-8 calls: {h2d}, the "
+          f"engine's {counted}")
     emit({"phase": "trace", "forwards": 5, "bucket": 8,
+          "h2d_copies_counted": counted[0], "h2d_bytes_counted": counted[1],
           "h2d_copies": len(h2d["bytes"]), "h2d_bytes": h2d["bytes"],
+          "h2d_copies_lost_by_trace": counted[0] - len(h2d["bytes"]),
           "h2d_ms": h2d["ms"],
           "window_ms": round(window_ms, 3), "device_ms": round(device_ms, 3),
           "busy_share": round(device_ms / window_ms, 4) if window_ms else None,

@@ -234,11 +234,15 @@ class _GraphExecutable:
     ``lock``, the MODEL's lock (shared by all its graphs), from the copy in
     until the rows are back on the host; the replays serialize on the
     model's one stream anyway. ``launches`` counts the kernel-wrapper calls
-    the graph holds (made during the capture; a replay calls no wrapper)."""
+    the graph holds (made during the capture; a replay calls no wrapper).
+    ``note_h2d(copies, nbytes)`` is told of each call's host-to-device
+    copies, under the lock."""
 
-    def __init__(self, fn, shapes, dtypes, device, pool, stream, lock):
+    def __init__(self, fn, shapes, dtypes, device, pool, stream, lock,
+                 note_h2d):
         from repro_torch.kernels import launch_counts
         self.lock = lock
+        self.note_h2d = note_h2d
         self.stream = stream
         self.inputs = tuple(torch.zeros(s, dtype=d, device=device)
                             for s, d in zip(shapes, dtypes))
@@ -263,8 +267,13 @@ class _GraphExecutable:
         ``rows`` rows on a bucket's graph) as fresh numpy arrays."""
         window = slice(None) if rows is None else slice(0, rows)
         with self.lock, torch.cuda.stream(self.stream):
+            copies = nbytes = 0
             for dst, src in zip(self.inputs, bufs):
+                if src.device.type != "cuda":
+                    copies += 1
+                    nbytes += src.numel() * src.element_size()
                 dst.copy_(src, non_blocking=True)
+            self.note_h2d(copies, nbytes)
             self.graph.replay()
             for h, o in zip(self.host, self.outputs):
                 h[window].copy_(o[window], non_blocking=True)
@@ -307,7 +316,9 @@ class CompiledModel:
     that no verified cache served also moves ``compile_events`` (``cache``
     None, or ``"miss"`` inside a cache-backed warm-up); one made from a
     cache record is logged ``"hit"`` and moves only ``capture_events`` and
-    ``cache_events``. After warm-up no counter moves on the serving path.
+    ``cache_events``. After warm-up none of these moves on the serving
+    path; the monotone ``h2d_copies`` / ``h2d_bytes`` do: every call of a
+    captured graph adds the graph inputs it copies from the host.
     """
 
     def __init__(self, g: G.Graph, use_kernels: bool = True,
@@ -344,6 +355,12 @@ class CompiledModel:
         # Monotone count of executables made, cold or from a cache record
         # (CUDA-graph captures on the card).
         self.capture_events = 0
+        # Monotone counts of the host-to-device copies of graph inputs that
+        # the captured graphs' calls made, and their bytes (an input
+        # already on the card is not copied from the host; the CPU makes
+        # none).
+        self.h2d_copies = 0
+        self.h2d_bytes = 0
         self.compile_log: list = []
         # persistent-cache interactions, the outcome of the last cache-backed
         # warm-up, and the tag of builds inside a cache-backed cold warm-up
@@ -424,7 +441,13 @@ class CompiledModel:
             return _GraphExecutable(
                 fn, [lead + tuple(g.tensor(t).shape) for t in g.inputs],
                 [_DTYPES[g.tensor(t).dtype] for t in g.inputs], self.device,
-                self._pool, self._stream, self._replay_lock)
+                self._pool, self._stream, self._replay_lock, self._note_h2d)
+
+    def _note_h2d(self, copies: int, nbytes: int) -> None:
+        """Count one call's host-to-device copies (caller holds the model's
+        ``_replay_lock``)."""
+        self.h2d_copies += copies
+        self.h2d_bytes += nbytes
 
     def compile(self):
         """The per-call executable, built once (the reference's AOT

@@ -1,8 +1,9 @@
 """Mixture-of-Experts (the port of ``repro.models.moe``): top-k routing with
-a static per-expert capacity; dispatch and combine by gather and
-scatter-add, so the work scales with the capacity slots, not with the
-tokens times the experts. With ``A2A_MESH`` set, the expert-parallel
-all-to-all dispatch of :mod:`~repro_torch.models.moe_a2a` runs instead.
+a static per-expert capacity; dispatch by gather, and a combine that sums
+each token's picks in a fixed order (:func:`combine`), so the work scales
+with the capacity slots, not with the tokens times the experts. With
+``A2A_MESH`` set, the expert-parallel all-to-all dispatch of
+:mod:`~repro_torch.models.moe_a2a` runs instead.
 """
 from __future__ import annotations
 
@@ -35,6 +36,31 @@ def router_logits(xf, router):
     return xf.float() @ router.float()
 
 
+def pick_slots(order, bins, ranks, n_bins, capacity, k):
+    """Each token's k picks as flat slots ``bin * capacity + rank`` of an
+    (n_bins, capacity) table, (n, k), ascending: the table's row-major
+    order. ``order`` is the stable sort of the token-major assignments by
+    bin, ``bins`` / ``ranks`` their place in sorted order, a dropped one
+    at bin ``n_bins``, rank 0: its slot is ``n_bins * capacity``, the zero
+    row of :func:`combine`."""
+    flat = bins * capacity + ranks
+    slots = torch.zeros_like(flat).index_put((order,), flat)
+    return slots.reshape(-1, k).sort(-1).values
+
+
+def combine(ye, slots):
+    """The tokens' outputs (n, d) from the table of weighted expert outputs
+    ``ye`` (bins, capacity, d): row t sums the table's rows at ``slots[t]``
+    (:func:`pick_slots`; the slot past the table reads a zero row), in
+    their order, by one reduction over the picks. That is the order in
+    which the CPU's ``index_add`` over the table's token ids adds them,
+    and the same bits on every run: on the card ``index_add`` adds by
+    atomics, in whichever order they land."""
+    d = ye.shape[-1]
+    rows = torch.cat([ye.reshape(-1, d), ye.new_zeros((1, d))], 0)
+    return rows[slots].sum(1)
+
+
 def _route_and_compute(cfg, p, xf, C):
     """Dispatch + expert FFN + combine for one token group xf (n, d)."""
     n, d = xf.shape
@@ -59,9 +85,8 @@ def _route_and_compute(cfg, p, xf, C):
     e_idx = torch.where(keep, e_s, E)          # dropped -> dummy expert row
     r_idx = torch.where(keep, rank, 0)
 
-    # the tables and the combine are written out of place (index_put,
-    # index_add): the same values, and a sharded dry run keeps the layout
-    # of the result (launch/dryrun.py)
+    # the tables are written out of place (index_put): the same values, and
+    # a sharded dry run keeps the layout of the result (launch/dryrun.py)
     dispatch = torch.full((E + 1, C), n, dtype=torch.long, device=dev) \
         .index_put((e_idx, r_idx), t_s)[:E]
     w_disp = torch.zeros((E + 1, C), dtype=torch.float32, device=dev) \
@@ -79,8 +104,7 @@ def _route_and_compute(cfg, p, xf, C):
     del h
     ye.mul_(w_disp[..., None].to(ye.dtype))
 
-    y = torch.zeros((n + 1, d), dtype=ye.dtype, device=dev) \
-        .index_add(0, dispatch.reshape(-1), ye.reshape(-1, d))[:n]
+    y = combine(ye, pick_slots(order, e_idx, r_idx, E, C, k))
 
     # Switch-style load-balance loss.
     frac_tokens = torch.nn.functional.one_hot(gate_e, E).float().sum(1) \

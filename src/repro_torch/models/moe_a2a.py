@@ -28,6 +28,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from .layers import apply_mlp, silu_as
+from .moe import combine, pick_slots
 
 
 def _rank_in_bins(ids, n_bins, capacity):
@@ -122,8 +123,7 @@ def _local(cfg, xf, router, w_gate, w_up, w_down, comm, E_loc, C1, C2):
         0, slot_tab.reshape(-1), ye.reshape(-1, d))[:m]
     yback = comm.all_to_all(ybuf.reshape(S, C1, d))
     contrib = yback * w_tab[..., None].to(yback.dtype)
-    y = yback.new_zeros((n_loc + 1, d)).index_add(
-        0, tok_tab.reshape(-1), contrib.reshape(-1, d))[:n_loc]
+    y = combine(contrib, pick_slots(order, b_idx, r_idx, S, C1, k))
 
     frac_tokens = F.one_hot(gate_e, E).float().sum(1).mean(0)
     aux = E * (frac_tokens * probs.mean(0)).sum() / k

@@ -335,6 +335,53 @@ def full_parity(p, r, ways):
     return ratios, [k for k, good in ok.items() if not good]
 
 
+# -- records that must not follow Python's string hashing -------------------
+# the MoE records whose layout DTensor once chose by the hash of strings
+# (ROADMAP Queue 3 ac): (arch, kind) of the reduced section
+HASHSEED_RECORDS = (("deepseek-v2-236b", "train"),
+                    ("deepseek-v2-236b", "prefill"),
+                    ("deepseek-v2-236b", "decode"),
+                    ("kimi-k2-1t-a32b", "train"),
+                    ("jamba-v0.1-52b", "train"))
+HASHSEEDS = (0, 7)
+HASHSEED_COMPARED = ("flops_per_device", "bytes_per_device", "collectives",
+                     "collective_bytes_total", "memory")
+
+
+def hashseed_records():
+    """The port's dry run of :data:`HASHSEED_RECORDS` under the reduced
+    section's setting: {"arch/kind": the numbers of
+    :data:`HASHSEED_COMPARED`}."""
+    refs = keyed(load()["reduced"])
+    out = {}
+    for arch, kind in HASHSEED_RECORDS:
+        (ref,) = [r for (a, k, _), r in refs.items()
+                  if (a, k) == (arch, kind)]
+        rec = port_record(ref, SECTIONS["reduced"])
+        assert rec["status"] == "ok", rec.get("traceback")
+        out[f"{arch}/{kind}"] = {k: rec[k] for k in HASHSEED_COMPARED}
+    return out
+
+
+def spawn_hashseed(seed, out, env=None):
+    """:func:`hashseed_records` in a process of its own with
+    ``PYTHONHASHSEED=seed``, written to ``out`` (``python
+    tests/_torch_launch_data.py --hashseed OUT``)."""
+    return subprocess.Popen(
+        [sys.executable, str(pathlib.Path(__file__).resolve()), "--hashseed",
+         str(out)], cwd=ROOT,
+        env={**(env or _env()), "PYTHONHASHSEED": str(seed)},
+        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+
+
+def hashseed_differences(a, b):
+    """The records of two :func:`hashseed_records` that differ, with the
+    numbers that do: {"arch/kind": {name: (a's, b's)}}."""
+    return {key: {k: (a[key][k], b[key].get(k)) for k in a[key]
+                  if a[key][k] != b[key].get(k)}
+            for key in sorted(a) if a[key] != b.get(key)}
+
+
 def main(argv=None):
     import tempfile
     argv = sys.argv[1:] if argv is None else argv
@@ -379,4 +426,8 @@ def _order(rec):
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--hashseed"]:
+        sys.path.insert(0, str(ROOT / "src"))
+        pathlib.Path(sys.argv[2]).write_text(json.dumps(hashseed_records()))
+        raise SystemExit(0)
     raise SystemExit(main())

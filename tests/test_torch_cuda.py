@@ -383,6 +383,49 @@ def test_no_recapture_or_wrapper_call_after_warmup(gen):
             fb.staging_events, launch_counts()) == state
 
 
+def test_h2d_counters_count_each_call_of_host_rows(gen):
+    """``h2d_copies`` / ``h2d_bytes``: each call of person's graphs copies
+    its logical rows from the host once (96 × 96 × 1 int8 a row; bucket 8
+    73,728 B, bucket 1 and the per-call graph 9,216 B), the capturing call
+    too; a call whose input is already on the card copies nothing from the
+    host."""
+    cm, xs = _paper_engine("person")
+    row = int(np.prod(xs.shape[1:]))
+    assert (cm.h2d_copies, cm.h2d_bytes) == (0, 0)
+    calls = [(xs, 8), (xs[:1], 1), (xs, 8), (xs, 8), (xs[:1], 1)]
+    for i, (batch, bucket) in enumerate(calls):
+        cm.predict_q_many(batch, max_batch=8)
+        done = calls[:i + 1]
+        assert (cm.h2d_copies, cm.h2d_bytes) == (
+            len(done), row * sum(b for _, b in done))
+    cm.predict_q(xs[0])
+    state = (len(calls) + 1, row * (sum(b for _, b in calls) + 1))
+    assert (cm.h2d_copies, cm.h2d_bytes) == state
+    cm.compile_batched(8).run((_staged_rows(cm, xs, 8),), 8)
+    assert (cm.h2d_copies, cm.h2d_bytes) == state
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+def test_apply_moe_same_bits_on_two_runs(gen, dtype):
+    """An MoE layer at top_k 6 (16 experts, d 512, 256 tokens) gives the
+    same bits on two calls: its combine sums each token's picks in one
+    order, where an ``index_add`` on the card adds them by atomics."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import draw
+    from repro_torch.models.moe import apply_moe, init_moe
+    cfg = dataclasses.replace(
+        get_config("deepseek-v2-236b").reduced(), d_model=512, n_experts=16,
+        top_k=6, moe_d_ff=256, capacity_factor=2.0)
+    p = draw(init_moe(cfg, dtype), 0, "cuda")
+    x = (torch.randn((4, 64, 512), generator=gen, device="cuda") * 0.3) \
+        .to(dtype)
+    (y1, a1), (y2, a2) = apply_moe(cfg, p, x), apply_moe(cfg, p, x)
+    assert torch.isfinite(y1.float()).all()
+    assert torch.equal(y1, y2) and torch.equal(a1, a2)
+
+
 @pytest.mark.parametrize("use_kernels", [True, False],
                          ids=["kernels", "compiled"])
 def test_warm_boot_from_cache_checks_every_capture(gen, tmp_path, use_kernels):
