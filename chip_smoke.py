@@ -52,7 +52,12 @@ inside the graph.
               ``qmatmul`` + 13 ``qdwconv`` calls, replays call none; every
               row held against the port's CPU plain route, and no border
               pad before a depthwise layer; per-call replay latency beside
-              the eager per-call forward's;
+              the eager per-call forward's; ``cost``: the per-call
+              forward's and buckets 1, 4, 8's ``cost_analysis`` count
+              (flops, bytes, transcendentals), which must equal the CPU
+              plain route's, with its bound (int8 peak, HBM rate) and
+              ``bound_by``; ``roofline_share``: each bucket's bound over
+              the device time of its graph's replay;
 7. paging   — the second main path, counted: the paged route (Sec. 4.3)
               with ``use_kernels=True`` on sine ``{0: 16, 1: 16}``, speech
               ``{2: 4}`` and person ``{29: 2}`` at ``predict_q`` and buckets
@@ -554,6 +559,18 @@ def bound_ms(sig) -> tuple:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / peak * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def forward_bound(cost: dict) -> dict:
+    """A forward's count (``cost_analysis()``'s keys) and its bound: the
+    larger of its products over the int8 tensor-core peak and its bytes
+    over the memory rate, the peaks ``work()`` uses."""
+    t_bytes = cost["bytes accessed"] / HBM_BYTES_PER_S * 1e3
+    t_ops = cost["flops"] / INT8_OPS_PER_S * 1e3
+    return {"flops": cost["flops"], "bytes": cost["bytes accessed"],
+            "transcendentals": cost["transcendentals"],
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
 def random_operands(sig, gen):
@@ -3476,7 +3493,8 @@ def main() -> int:
     launch_lines, launch_s = run_launch()
     from repro_torch.configs.paper_models import (PAPER_MODELS, build_person,
                                                   build_speech)
-    from repro_torch.core.engine import CompiledModel, bucket_for
+    from repro_torch.core.engine import (CompiledModel, bucket_for,
+                                         cost_of_plan)
     from repro_torch.core.quantize import quantize_graph
     from repro_torch.kernels import _build
     from repro_torch.kernels import ops as kops
@@ -3632,6 +3650,24 @@ def main() -> int:
     serve_ms = {str(bucket_for(b)): host_ms(
         lambda b=b: cm.predict_q_many(xq[:b], max_batch=MAX_BATCH))
         for b in SERVE_BATCHES}
+    # the forward's count, as the CPU plain route of the same graph gives
+    # it, and each bucket's roofline share: the count's bound over the
+    # device time of the bucket's graph replay, on the model's stream
+    percall_cost = cm.cost_analysis()
+    check(percall_cost == plain_cpu.cost_analysis(),
+          f"cost_analysis on the card {percall_cost}, on the CPU plain "
+          f"route {plain_cpu.cost_analysis()}")
+    cost, replay_ms, share = {"percall": forward_bound(percall_cost)}, {}, {}
+    for b in sorted(captured):
+        got = cost_of_plan(cm.exec_plan, b)
+        check(got == cost_of_plan(plain_cpu.exec_plan, b),
+              f"bucket {b}: the count on the card {got} is not the CPU "
+              f"plain route's")
+        exe = cm.compile_batched(b)
+        with torch.cuda.stream(exe.stream):
+            replay_ms[str(b)] = cuda_ms(exe.graph.replay, reps=5, inner=5)
+        cost[str(b)] = forward_bound(got)
+        share[str(b)] = cost[str(b)]["bound_ms"] / replay_ms[str(b)]
     x1 = torch.as_tensor(xq[0], device="cuda")
     percall_ms = {"replay_ms": host_ms(lambda: cm.predict_q(xq[0])),
                   "eager_ms": host_ms(lambda: [o.cpu() for o in cm._fn(x1)])}
@@ -3642,7 +3678,9 @@ def main() -> int:
           "softmax_max_abs_diff": max(close(single, want_rows[0]),
                                       *(close(o, want_rows[:b])
                                         for b, o in served.items())),
-          "ms_per_bucket_call": serve_ms, "ms_per_percall": percall_ms})
+          "ms_per_bucket_call": serve_ms, "ms_per_percall": percall_ms,
+          "cost": cost, "replay_ms_per_bucket": replay_ms,
+          "roofline_share": share})
 
     # -- the second main path, counted ---------------------------------------
     paging_launches = phase_paging(paged_models, fc256, float_speech)

@@ -187,12 +187,21 @@ def measure_live_bytes(plan: ExecutionPlan, batched: bool = False,
 def device_advisory(compiled_model: Any) -> Dict[str, Any]:
     """Best-effort cross-check against what the card says of the model's
     memory — the counterpart of the reference's ``xla_advisory``, which
-    reads XLA's memory analysis of the per-call executable. Reports
-    ``CompiledModel.memory_analysis()``: on the card the bytes the model's
-    CUDA-graph captures drew into its graph pool and
-    ``torch.cuda.memory_reserved()``; ``{}`` on the CPU (advisory: there is
-    no graph pool there)."""
+    reads XLA's memory and cost analyses of the per-call executable.
+    Reports ``CompiledModel.memory_analysis()``: on the card the bytes the
+    model's CUDA-graph captures drew into its graph pool and
+    ``torch.cuda.memory_reserved()``, none on the CPU (there is no graph
+    pool there); and ``bytes_accessed``, the per-call forward's ``"bytes
+    accessed"`` from ``CompiledModel.cost_analysis()``, on every device."""
+    out: Dict[str, Any] = {}
     try:
-        return {k: int(v) for k, v in compiled_model.memory_analysis().items()}
+        out.update((k, int(v))
+                   for k, v in compiled_model.memory_analysis().items())
     except Exception:  # advisory only: a model without the surface
-        return {}
+        pass
+    try:
+        out["bytes_accessed"] = int(
+            compiled_model.cost_analysis()["bytes accessed"])
+    except (AttributeError, NotImplementedError):  # no surface, or an op
+        pass                                      # without a cost rule
+    return out

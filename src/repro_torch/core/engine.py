@@ -167,6 +167,52 @@ class ExecutionPlan:
         return fn
 
 
+def cost_of_plan(plan, batch: Optional[int] = None) -> dict:
+    """The work of one forward of ``plan``'s graph, counted from the graph
+    and not from a route's lowering, so the plain, kernel (with or without
+    the layout plan) and paged routes, on the CPU or the card, all give the
+    same dict — the port of the reference's ``cost_analysis()`` keys:
+
+    ``"flops"``
+        Products only, 2 per multiply-add at the graph's shapes:
+        FULLY_CONNECTED ``2·M·K·N``, CONV_2D ``2·B·OH·OW·KH·KW·Cin·Cout``,
+        DEPTHWISE_CONV_2D ``2·B·OH·OW·KH·KW·C``. Pools, adds, activations,
+        pads, reshapes and the requant epilogue add nothing (XLA's
+        ``flops`` also counts elementwise ops; the dry run's FLOPs do not).
+    ``"bytes accessed"``
+        Each op reads each of its operands once (weights and bias
+        included) and writes its output once, at the stored dtype (int8
+        activations and weights, int32 biases; float32 in a float graph).
+        RESHAPE is a view and moves nothing. The folded constants of
+        Eqs. (4)/(7)/(10), the kernels' pads to their lane quantum, the
+        im2col copies and the paged route's page slices are how a route
+        implements an op, and are left out.
+    ``"transcendentals"``
+        One ``exp`` per element of each SOFTMAX input.
+
+    ``batch=None`` counts the per-call forward at the graph's shapes;
+    ``batch=b`` the forward of bucket ``b``: every activation carries ``b``
+    rows of its graph shape, and a weight counts once at any batch. An op
+    kind with no cost rule raises: the count is never a partial sum."""
+    g = plan.graph
+    lead = () if batch is None else (int(batch),)
+
+    def spec(tid):
+        t = g.tensor(tid)
+        return t if t.is_const or not lead else \
+            G.TensorSpec(t.name, lead + t.shape, t.dtype)
+
+    total = {"flops": 0, "bytes accessed": 0, "transcendentals": 0}
+    for op in g.ops:
+        rule = R.get(op.op).cost
+        if rule is None:
+            raise NotImplementedError(f"op {op.op!r} has no cost rule")
+        for k, v in rule(op, [spec(t) for t in op.inputs],
+                         spec(op.outputs[0])).items():
+            total[k] += v
+    return total
+
+
 def bucket_for(batch: int) -> int:
     """Power-of-two shape bucket (``bucket_for(0) == bucket_for(1) == 1``;
     negative batches raise)."""
@@ -634,6 +680,14 @@ class CompiledModel:
                 "memory_reserved_bytes":
                     int(torch.cuda.memory_reserved(self.device)),
                 "captures": captures}
+
+    def cost_analysis(self) -> dict:
+        """The per-call forward's ``"flops"``, ``"bytes accessed"`` and
+        ``"transcendentals"``, as the reference's ``cost_analysis`` reports
+        XLA's count of its per-call executable, but counted from the graph
+        (:func:`cost_of_plan`, which states the rules and counts a bucket):
+        the same on every route and device, with no build or capture."""
+        return cost_of_plan(self.exec_plan)
 
     def warmup_batched(self, max_batch: int, *,
                        cache=None) -> "CompiledModel":

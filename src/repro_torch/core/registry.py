@@ -27,6 +27,10 @@ Each operator registers exactly one :class:`OpDescriptor`:
     Quantization metadata for weighted ops (PTQ axis, ΣW folding spec).
 ``infer``
     Declarative shape/dtype inference from input specs and attributes.
+``cost``
+    The op's share of ``CompiledModel.cost_analysis()``: its products,
+    transcendentals and bytes, read from the specs of its operands and
+    output at the batch counted (the same on every route).
 """
 from __future__ import annotations
 
@@ -133,6 +137,7 @@ class OpDescriptor:
     w_sum_axes: Optional[tuple] = None  # ΣW reduction axes (Eq. 4/7/10)
     w_count_axes: Optional[tuple] = None  # axes whose sizes multiply to n
     infer: Optional[Callable] = None    # (op, in_specs) -> (shape, dtype)
+    cost: Optional[Callable] = None     # (op, in_specs, out_spec) -> dict
 
 
 _REGISTRY: dict = {}
@@ -373,6 +378,55 @@ def _softmax_infer(op, ins):
 
 
 # ---------------------------------------------------------------------------
+# Cost rules (``CompiledModel.cost_analysis``): the model's work, not a
+# route's. ``flops`` counts products only, 2 per multiply-add; ``bytes
+# accessed`` reads each operand once (weights and bias included) and writes the output
+# once; ``transcendentals`` counts softmax's ``exp``.
+# ---------------------------------------------------------------------------
+
+def _numel(t) -> int:
+    return int(np.prod(t.shape, dtype=np.int64))
+
+
+def _moved(ins, out) -> int:
+    return sum(t.nbytes for t in ins) + out.nbytes
+
+
+def _cost(flops: int, moved: int, transcendentals: int = 0) -> dict:
+    return {"flops": flops, "bytes accessed": moved,
+            "transcendentals": transcendentals}
+
+
+def _fc_cost(op, ins, out):
+    return _cost(2 * _numel(out) * ins[1].shape[0], _moved(ins, out))
+
+
+def _conv_cost(op, ins, out):
+    kh, kw, cin, _ = ins[1].shape
+    return _cost(2 * _numel(out) * kh * kw * cin, _moved(ins, out))
+
+
+def _dwconv_cost(op, ins, out):
+    kh, kw, _, _ = ins[1].shape
+    return _cost(2 * _numel(out) * kh * kw, _moved(ins, out))
+
+
+def _moves_cost(op, ins, out):
+    """Pools, ADD, PAD, activations: no products (XLA's ``flops`` would
+    count their elementwise work; this count does not)."""
+    return _cost(0, _moved(ins, out))
+
+
+def _view_cost(op, ins, out):
+    """RESHAPE is a view: it moves nothing."""
+    return _cost(0, 0)
+
+
+def _softmax_cost(op, ins, out):
+    return _cost(0, _moved(ins, out), _numel(ins[0]))
+
+
+# ---------------------------------------------------------------------------
 # FULLY_CONNECTED — Eqs. (2)-(4)
 # ---------------------------------------------------------------------------
 
@@ -420,6 +474,7 @@ register(
     lower_paged=_fc_paged,
     batched=_fc_batched,
     infer=_fc_infer,
+    cost=_fc_cost,
     weight_axis=1,
     w_sum_axes=(0,),
     w_count_axes=(0,),
@@ -467,6 +522,7 @@ register(
     lower_kernel=_conv_kernel,
     batched=_merge_lead2,
     infer=_conv_infer,
+    cost=_conv_cost,
     weight_axis=3,
     w_sum_axes=(0, 1, 2),
     w_count_axes=(0, 1, 2),
@@ -504,6 +560,7 @@ register(
     lower_kernel=_dwconv_kernel,
     batched=_merge_lead2,
     infer=_dwconv_infer,
+    cost=_dwconv_cost,
     weight_axis=2,
     w_sum_axes=(0, 1, 3),
     w_count_axes=(0, 1),
@@ -527,10 +584,10 @@ def _make_pool(qf, ff):
 
 register(G.AVERAGE_POOL_2D,
          eval_reference=_make_pool(K.average_pool2d_q, K.average_pool2d_f),
-         batched=_merge_lead2, infer=_pool_infer)
+         batched=_merge_lead2, infer=_pool_infer, cost=_moves_cost)
 register(G.MAX_POOL_2D,
          eval_reference=_make_pool(K.max_pool2d_q, K.max_pool2d_f),
-         batched=_merge_lead2, infer=_pool_infer)
+         batched=_merge_lead2, infer=_pool_infer, cost=_moves_cost)
 
 
 # ---------------------------------------------------------------------------
@@ -548,7 +605,7 @@ def _add_eval(ctx, a, b):
 
 
 register(G.ADD, eval_reference=_add_eval,  # elementwise: default batch rule
-         infer=_add_infer)
+         infer=_add_infer, cost=_moves_cost)
 
 
 def _pad_eval(ctx, x):
@@ -560,7 +617,7 @@ def _pad_eval(ctx, x):
 
 
 register(G.PAD, eval_reference=_pad_eval, batched=_pad_batched,
-         infer=_pad_infer)
+         infer=_pad_infer, cost=_moves_cost)
 
 
 def _reshape_eval(ctx, x):
@@ -568,7 +625,7 @@ def _reshape_eval(ctx, x):
 
 
 register(G.RESHAPE, eval_reference=_reshape_eval, batched=_reshape_batched,
-         infer=_reshape_infer)
+         infer=_reshape_infer, cost=_view_cost)
 
 
 # ---------------------------------------------------------------------------
@@ -584,9 +641,9 @@ def _make_act(qf, ff):
 
 
 register(G.RELU, eval_reference=_make_act(K.relu_q, K.relu_f),
-         infer=_eltwise_infer)
+         infer=_eltwise_infer, cost=_moves_cost)
 register(G.RELU6, eval_reference=_make_act(K.relu6_q, K.relu6_f),
-         infer=_eltwise_infer)
+         infer=_eltwise_infer, cost=_moves_cost)
 
 
 def _softmax_eval(ctx, x):
@@ -597,7 +654,7 @@ def _softmax_eval(ctx, x):
 
 
 register(G.SOFTMAX, eval_reference=_softmax_eval, batched=_softmax_batched,
-         infer=_softmax_infer)
+         infer=_softmax_infer, cost=_softmax_cost)
 
 
 assert set(registered_ops()) == set(G.ALL_OPS), (

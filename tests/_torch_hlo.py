@@ -3,7 +3,11 @@ for the reference's dry-run records (``tests/_torch_launch_ref.py``) and
 the tests that check them. Plain Python: no JAX.
 
 * :func:`dot_flops`: 2·M·N·K of every ``dot``, the matmul part of
-  ``cost_analysis()["flops"]`` (which also counts elementwise ops).
+  ``cost_analysis()["flops"]`` (which also counts elementwise ops); with
+  ``conv=True`` also :func:`conv_flops` and the products of every dot XLA
+  rewrote into a ``multiply``, the products of the whole module.
+* :func:`conv_flops`: 2 × output elements × window size × input features
+  ÷ ``feature_group_count`` of every ``convolution``.
 * :func:`hlo_bytes`: ``cost_analysis()["bytes accessed"]`` recounted
   instruction by instruction with the rules of XLA's ``HloCostAnalysis``
   (an op reads its operands and writes its output; a fusion reads each
@@ -34,6 +38,10 @@ LAYOUT = frozenset({"convert", "bitcast", "copy", "slice", "dynamic-slice",
 _DOT = re.compile(r"lhs_contracting_dims=\{([\d,]*)\}")
 _BATCH = re.compile(r"lhs_batch_dims=\{([\d,]*)\}")
 _EINSUM = re.compile(r"([a-z]+,[a-z]+->[a-z]+)\)*/dot_general")
+_WINDOW = re.compile(r"window=\{size=([\dx]+)")
+_LABELS = re.compile(r"dim_labels=([\w]+)_")
+_GROUPS = re.compile(r"feature_group_count=(\d+)")
+_FROM_DOT = re.compile(r'op_name="[^"]*dot_general"')
 
 
 def _dims(shape):
@@ -77,11 +85,64 @@ def parse(hlo):
     return comps, entry
 
 
-def dot_flops(hlo, batch=None, found=None):
+def conv_flops(hlo, found=None):
+    """2 × output elements × window size × input features ÷
+    ``feature_group_count`` of every ``convolution`` of the module (padded
+    window positions included, as a kernel computes them; XLA's own count
+    leaves the positions in the padding out), each appended to ``found``
+    (if given) as ("convolution", lhs dims, rhs dims, output dims,
+    FLOPs)."""
+    comps, _ = parse(hlo)
+    total = 0
+    for body in comps.values():
+        for ins in body.values():
+            if ins["op"] != "convolution":
+                continue
+            lhs = _dims(body[ins["operands"][0]]["shape"])
+            window = _WINDOW.search(ins["attrs"])
+            size = math.prod(int(d) for d in window.group(1).split("x")) \
+                if window else 1
+            features = lhs[_LABELS.search(ins["attrs"]).group(1).index("f")]
+            groups = _GROUPS.search(ins["attrs"])
+            flops = (2 * math.prod(_dims(ins["shape"])) * size * features
+                     // (int(groups.group(1)) if groups else 1))
+            total += flops
+            if found is not None:
+                found.append(("convolution", lhs,
+                              _dims(body[ins["operands"][1]]["shape"]),
+                              _dims(ins["shape"]), flops))
+    return total
+
+
+def _rewritten_dot_flops(hlo, found=None):
+    """2 per element of every ``multiply`` whose metadata names a
+    ``dot_general``: XLA rewrites a dot whose contraction has size 1 into
+    a broadcast multiply, and a multiply XLA makes of a dot holds one
+    element per product."""
+    comps, _ = parse(hlo)
+    total = 0
+    for body in comps.values():
+        for ins in body.values():
+            if ins["op"] == "multiply" and _FROM_DOT.search(ins["attrs"]):
+                flops = 2 * math.prod(_dims(ins["shape"]))
+                total += flops
+                if found is not None:
+                    found.append(("multiply", _dims(
+                        body[ins["operands"][0]]["shape"]), _dims(
+                        body[ins["operands"][1]]["shape"]),
+                        _dims(ins["shape"]), flops))
+    return total
+
+
+def dot_flops(hlo, batch=None, found=None, conv=False):
     """2·M·N·K of every ``dot`` of the module. With ``batch``, of the dots
     with a batch dimension of that size only, each appended to ``found``
     (if given) as (the einsum its ``op_name`` names, or None where XLA
-    made the dot, lhs dims, rhs dims, output dims, FLOPs)."""
+    made the dot, lhs dims, rhs dims, output dims, FLOPs). With ``conv``
+    (and no ``batch``), the products of the whole module: the dots, each
+    appended to ``found`` as ("dot", lhs dims, rhs dims, output dims,
+    FLOPs), plus :func:`conv_flops` and the dots XLA rewrote into a
+    multiply (:func:`_rewritten_dot_flops`), listed there alike."""
     comps, _ = parse(hlo)
     total = 0
     for body in comps.values():
@@ -98,11 +159,13 @@ def dot_flops(hlo, batch=None, found=None):
                 None, _DOT.search(ins["attrs"]).group(1).split(",")))
             flops = 2 * k * math.prod(_dims(ins["shape"]))
             total += flops
-            if batch is not None and found is not None:
+            if found is not None and (batch is not None or conv):
                 eq = _EINSUM.search(ins["attrs"])
-                found.append((eq and eq.group(1), lhs,
+                found.append(("dot" if conv else eq and eq.group(1), lhs,
                               _dims(body[ins["operands"][1]]["shape"]),
                               _dims(ins["shape"]), flops))
+    if conv:
+        total += conv_flops(hlo, found) + _rewritten_dot_flops(hlo, found)
     return total
 
 

@@ -35,6 +35,7 @@ from repro.analysis import static_output_bounds as j_bounds
 from repro.analysis import verify_plan as j_verify
 from repro.analysis import warmed_buckets as j_warmed_buckets
 from repro.analysis import warmed_stage_keys as j_warmed_keys
+from repro.analysis.liveness import xla_advisory as j_xla_advisory
 from repro.analysis.__main__ import quantized_graph as j_quantized_graph
 from repro.core import CompiledModel as JModel
 from repro.core import ExecutionPlan as JPlan
@@ -287,7 +288,28 @@ def test_paged_and_device_advisory(graphs):
     assert not errors(verify_plan(plan))
     assert paged_peak_bytes(plan) > 0
     assert paged_peak_bytes(TPlan.build(tg, device="cpu")) is None
-    assert device_advisory(TModel(tg, device="cpu")) == {}
+    # no graph pool on the CPU: only the cost analysis's bytes
+    cm = TModel(tg, device="cpu")
+    assert device_advisory(cm) == {
+        "bytes_accessed": cm.cost_analysis()["bytes accessed"]}
+
+
+@pytest.mark.parametrize("route", ROUTES, ids=["plain", "kernels"])
+@pytest.mark.parametrize("name", MODELS)
+def test_device_advisory_bytes_accessed(graphs, name, route):
+    """``bytes_accessed`` as the reference's ``xla_advisory`` has it, read
+    from ``cost_analysis()``: the model's bytes, at most XLA's count of the
+    reference's plain route, the same on both routes, and present on the
+    CPU, where the memory keys are not."""
+    jg, tg = graphs[name]
+    cm = TModel(tg, use_kernels=route, device="cpu")
+    got = device_advisory(cm)
+    assert set(got) == {"bytes_accessed"}
+    assert got["bytes_accessed"] == cm.cost_analysis()["bytes accessed"] \
+        == device_advisory(TModel(tg, use_kernels=not route,
+                                  device="cpu"))["bytes_accessed"]
+    xla = j_xla_advisory(JModel(jg, use_pallas=False))["bytes_accessed"]
+    assert 0 < got["bytes_accessed"] <= xla
 
 
 # ------------------------------------------------------------ pad budget --
