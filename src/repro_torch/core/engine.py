@@ -53,7 +53,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.obs.trace import engine_event, engine_span
+from repro_torch.obs.trace import (end_call, engine_call, engine_event,
+                                   engine_span)
 from . import graph as G
 from . import registry as R
 from .device import resolve_device
@@ -258,8 +259,13 @@ class _EagerBucket:
     def __init__(self, fn):
         self._fn = fn
 
-    def run(self, bufs, rows: int) -> tuple:
-        return tuple(o[:rows].numpy().copy() for o in self._fn(*bufs))
+    def run(self, bufs, rows: int, call=None) -> tuple:
+        if call is not None:
+            call.lap("engine.launch")
+        outs = self._fn(*bufs)
+        if call is not None:
+            call.lap("engine.unstage")
+        return tuple(o[:rows].numpy().copy() for o in outs)
 
 
 class _GraphExecutable:
@@ -282,7 +288,10 @@ class _GraphExecutable:
     model's one stream anyway. ``launches`` counts the kernel-wrapper calls
     the graph holds (made during the capture; a replay calls no wrapper).
     ``note_h2d(copies, nbytes)`` is told of each call's host-to-device
-    copies, under the lock."""
+    copies, under the lock. ``call`` (a :class:`repro_torch.obs.trace.Lap`,
+    or None untraced) is lapped into ``engine.launch`` before the lock is
+    taken, ``engine.sync`` once the output copies are issued and
+    ``engine.unstage`` once the card is done."""
 
     def __init__(self, fn, shapes, dtypes, device, pool, stream, lock,
                  note_h2d):
@@ -308,10 +317,12 @@ class _GraphExecutable:
                           for o in self.outputs)
         self.done = torch.cuda.Event()
 
-    def run(self, bufs, rows: Optional[int] = None) -> tuple:
+    def run(self, bufs, rows: Optional[int] = None, call=None) -> tuple:
         """Copy ``bufs`` in, replay, and return the outputs (their first
         ``rows`` rows on a bucket's graph) as fresh numpy arrays."""
         window = slice(None) if rows is None else slice(0, rows)
+        if call is not None:
+            call.lap("engine.launch")
         with self.lock, torch.cuda.stream(self.stream):
             copies = nbytes = 0
             for dst, src in zip(self.inputs, bufs):
@@ -323,8 +334,12 @@ class _GraphExecutable:
             self.graph.replay()
             for h, o in zip(self.host, self.outputs):
                 h[window].copy_(o[window], non_blocking=True)
+            if call is not None:
+                call.lap("engine.sync")
             self.done.record(self.stream)
             self.done.synchronize()
+            if call is not None:
+                call.lap("engine.unstage")
             return tuple(h[window].numpy().copy() for h in self.host)
 
 
@@ -365,6 +380,13 @@ class CompiledModel:
     ``cache_events``. After warm-up none of these moves on the serving
     path; the monotone ``h2d_copies`` / ``h2d_bytes`` do: every call of a
     captured graph adds the graph inputs it copies from the host.
+
+    ``tracer`` (a :class:`repro_torch.obs.trace.Tracer`, None by default;
+    ``ServingRegistry.register`` binds the registry's) receives the
+    counted spans of every engine call made outside a flush's trace scope
+    (``engine.stage`` / ``launch`` / ``sync`` / ``unstage``, see
+    :mod:`repro_torch.obs.trace`); inside a scope they go to the flush.
+    With neither, a call reads no clock for tracing.
     """
 
     def __init__(self, g: G.Graph, use_kernels: bool = True,
@@ -413,6 +435,7 @@ class CompiledModel:
         self.cache_events = {"hit": 0, "miss": 0, "store": 0}
         self.last_cache_result = None
         self._cache_mode: Optional[str] = None
+        self.tracer = None
 
     @property
     def graph(self) -> G.Graph:
@@ -780,13 +803,22 @@ class CompiledModel:
         """Run the bucket executable on prestaged logical-shape buffers:
         the copy in, the replay (entry lane pad included) and the first
         ``rows`` rows copied out."""
-        bucket = int(bufs[0].shape[0])
-        exe = self.compile_batched(bucket)
-        # the device span covers the replay AND the host sync — what a
-        # request actually waits for
-        with engine_span("device", bucket=bucket, rows=rows):
-            outs = exe.run(bufs, rows)
-        return _single(outs)
+        call = engine_call(self.tracer)
+        try:
+            bucket = int(bufs[0].shape[0])
+            exe = self.compile_batched(bucket)
+            h = None if call is None else call.handle
+            if h is None:
+                return _single(exe.run(bufs, rows, call))
+            # the device span covers the replay AND the host sync — what a
+            # request actually waits for
+            t0 = h.clock.now()
+            outs = exe.run(bufs, rows, call)
+            h.span("device", t0, h.clock.now(), bucket=bucket, rows=rows)
+            return _single(outs)
+        finally:
+            if call is not None:
+                end_call(call)
 
     def staged_infer(self, rows: list):
         """Serving fast-path flush: write single-sample ``rows`` of a
@@ -800,15 +832,20 @@ class CompiledModel:
         n = len(rows)
         if n == 0:
             return self._empty_rows()
-        bucket = bucket_for(n)
-        bufs = self.acquire_staging(bucket)
+        call = engine_call(self.tracer)
         try:
-            dst = bufs[0].numpy()
-            for i, row in enumerate(rows):
-                dst[i] = np.asarray(row, t.dtype).reshape(t.shape)
-            return self.predict_q_staged(bufs, n)
+            bucket = bucket_for(n)
+            bufs = self.acquire_staging(bucket)
+            try:
+                dst = bufs[0].numpy()
+                for i, row in enumerate(rows):
+                    dst[i] = np.asarray(row, t.dtype).reshape(t.shape)
+                return self.predict_q_staged(bufs, n)
+            finally:
+                self.release_staging(bucket, bufs, n)
         finally:
-            self.release_staging(bucket, bufs, n)
+            if call is not None:
+                end_call(call)
 
     # -- inference ---------------------------------------------------------
     def _is_batched(self, first_input) -> bool:
@@ -821,7 +858,7 @@ class CompiledModel:
                      np.dtype(self.graph.tensor(t).dtype))
             for t in self.graph.outputs))
 
-    def _predict_q_batched(self, inputs):
+    def _predict_q_batched(self, inputs, call):
         arrs = []
         for tid, arr in zip(self.graph.inputs, inputs):
             t = self.graph.tensor(tid)
@@ -833,13 +870,14 @@ class CompiledModel:
                                  f"{a.shape[0]} != {batch}")
         bucket = bucket_for(batch)
         bufs = self.acquire_staging(bucket)
+        scoped = call is not None and call.handle is not None
         try:
             for tid, a, buf in zip(self.graph.inputs, arrs, bufs):
                 # the span marks staging that pads, as the reference's does:
                 # a bucket fill (zero rows of the buffer) or an entry lane
                 # pad (inside the bucket's forward, on the device)
-                with (engine_span("pad_stage", batch=batch)
-                      if any(w for _, w in self._entry_widths(tid, batch))
+                with (engine_span("pad_stage", batch=batch) if scoped and any(
+                        w for _, w in self._entry_widths(tid, batch))
                       else contextlib.nullcontext()):
                     buf.numpy()[:batch] = a
             return self.predict_q_staged(bufs, batch)
@@ -851,15 +889,26 @@ class CompiledModel:
         leading batch dimension (routed through the bucketed batch path);
         one sample runs the per-call executable (:meth:`compile`, built at
         the first call)."""
-        if self._is_batched(inputs[0]):
-            return self._predict_q_batched(inputs)
-        exe = self.executable
-        args = [torch.from_numpy(np.array(arr, self.graph.tensor(tid).dtype)
-                                 .reshape(self.graph.tensor(tid).shape))
+        call = engine_call(self.tracer)
+        try:
+            if self._is_batched(inputs[0]):
+                return self._predict_q_batched(inputs, call)
+            exe = self.executable
+            args = [torch.from_numpy(
+                np.array(arr, self.graph.tensor(tid).dtype)
+                .reshape(self.graph.tensor(tid).shape))
                 for tid, arr in zip(self.graph.inputs, inputs)]
-        if self.device.type == "cuda":
-            return _single(exe.run(args))
-        return _single(tuple(o.numpy() for o in exe(*args)))
+            if self.device.type == "cuda":
+                return _single(exe.run(args, None, call))
+            if call is not None:
+                call.lap("engine.launch")
+            outs = exe(*args)
+            if call is not None:
+                call.lap("engine.unstage")
+            return _single(tuple(o.numpy() for o in outs))
+        finally:
+            if call is not None:
+                end_call(call)
 
     def predict_q_many(self, *inputs, max_batch: Optional[int] = None):
         """Batched ``predict_q`` that splits a batch into bucket-aligned

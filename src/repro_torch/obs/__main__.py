@@ -9,13 +9,14 @@ end-to-end with zero real sleeps:
   gap-free span tree (queue + assemble + dispatch sums match the observed
   latency exactly under virtual time);
 * engine-style spans recorded inside ``infer`` cross the executor
-  boundary via the thread-local trace scope;
+  boundary via the thread-local trace scope, and every flush counts one
+  ``sched.resolve``;
 * a transient fault produces a retry span on the SAME trace, and a broken
   primary route produces attempt spans on both routes plus a degrade
   event — trace ids stay stable across retry/degrade hops;
 * a persistent failure storm trips the circuit breaker and the flight
   recorder dumps a parseable postmortem JSON (flush_error AND
-  breaker_open triggers);
+  breaker_open triggers), with no clock offset under the virtual clock;
 * the OpenMetrics exposition renders every family and parses the smoke
   checks below.
 
@@ -73,7 +74,7 @@ async def _scenario(tmpdir: str, verbose: bool = False):
     flight = _ReasonLog(capacity=256,
                         path=os.path.join(tmpdir, "flightrec.json"),
                         min_dump_interval_s=0.0)
-    tracer = Tracer(flight=flight)
+    tracer = Tracer(flight=flight, clock=clock)
     inj = FaultInjector(seed=11)
     rex = ResilientExecutor(
         inj.wrap(InlineExecutor()),
@@ -114,6 +115,7 @@ async def _scenario(tmpdir: str, verbose: bool = False):
             # span ordering: queue closes before dispatch opens
             by = {s.name: s for s in tree["spans"]}
             assert by["queue"].t1 <= by["dispatch"].t0 + 1e-12
+        assert tracer.counters()["sched.resolve.n"] == b.metrics.batches
         say("clean storm: 6/6 complete span trees, exact decomposition")
 
         # -- 2) transient fault: retry span, stable trace id -------------
@@ -178,6 +180,7 @@ async def _scenario(tmpdir: str, verbose: bool = False):
     assert "breaker_open" in flight.reasons, flight.reasons
     doc = json.loads(open(flight.path).read())
     assert doc["events"] and doc["reason"] == flight.reasons[-1]
+    assert doc["clock_offset_ns"] is None  # virtual time: no epoch
     kinds = {e["kind"] for e in doc["events"]}
     assert {"terminal", "fault", "breaker"} <= kinds, kinds
     say(f"breaker storm: {flight.dumps} dumps "

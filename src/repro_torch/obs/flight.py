@@ -48,6 +48,9 @@ class FlightRecorder:
         self.suppressed = 0     # triggers swallowed by rate limiting
         self.last_dump_path: Optional[str] = None
         self.last_dump_reason: Optional[str] = None
+        # time.time_ns() less the events' clock in ns, set by the Tracer
+        # that records here (None: unknown, or a virtual clock)
+        self.clock_offset_ns: Optional[int] = None
 
     # -- recording --------------------------------------------------------
 
@@ -93,6 +96,7 @@ class FlightRecorder:
         doc = {"reason": reason, "t": t,
                "capacity": self.capacity,
                "recorded": self.recorded, "dropped": self.dropped,
+               "clock_offset_ns": self.clock_offset_ns,
                "events": self.events()}
         with open(path, "w") as f:
             # default=repr: span attrs may carry numpy scalars etc. — a

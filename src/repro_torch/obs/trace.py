@@ -1,4 +1,5 @@
-"""Request-lifecycle tracing for the serving stack.
+"""Request-lifecycle tracing for the serving stack, and the engine's and
+the batcher's host work in counted spans.
 
 Every request admitted by a :class:`~repro_torch.serve.scheduler.MicroBatcher`
 gets a trace id; every lifecycle stage it passes through —
@@ -8,34 +9,76 @@ gets a trace id; every lifecycle stage it passes through —
 
 — becomes a :class:`Span` stamped with the *injected* clock, so FakeClock
 tests stay zero-sleep and bit-deterministic while wall-clock runs get real
-timings.  The design follows the repo's everything-bounded discipline:
+timings.
+
+Counted spans (:data:`COUNTED`) split the host time of one engine call
+(one ``staged_infer`` / ``predict_q_staged``, one bucket chunk of
+``predict_q_many``, one ``predict_q``) and of one flush's resolution:
+
+    engine.stage    rows into the host buffer the copy reads (staging
+                    checkout, the row loop or the buffer fill, numpy to
+                    torch on the per-call path)
+    engine.launch   the model's replay lock taken, the input copies, the
+                    graph replay and the output copies issued (on the CPU,
+                    the eager forward)
+    engine.sync     the host waiting for the card (``done.synchronize``;
+                    absent on the CPU)
+    engine.unstage  answers copied out to numpy, the staging buffer
+                    re-zeroed and returned
+    sched.resolve   the batcher setting every row's answer and doing the
+                    flush's accounting (``_distribute``)
+
+The four engine spans are consecutive (:class:`Lap`): together they cover
+the call from entry to return. Each adds its duration to the tracer's
+accumulator (:meth:`Tracer.counters`: ``<span>.n`` and ``<span>.sum_us``,
+one count per occurrence, not per request); inside a flush scope each is
+also a child span of the flush. While a torch profiler records, each
+counted span and ``flush_assemble`` is also a profiler range of its name
+(``_RecordFunctionFast``: a host event only, no device-side copy), so a
+device trace names an idle gap by the span over it. The tracer's clock
+offset to ``time.time_ns()`` (:attr:`Tracer.clock_offset_ns`) lays dumped
+spans on such a trace.
+
+The design follows the repo's everything-bounded discipline:
 
 * all per-request state lives in dicts/deques with hard caps — a tracer
   never grows without bound no matter how long the process serves;
 * the hot path is allocation-light: one ``_Req`` per admission, one
-  ``_Flush`` per batch, plain ``Span`` objects with ``__slots__``;
-* a disabled tracer (``NULL_TRACER``) costs one attribute check per hook.
+  ``_Flush`` per batch, plain ``Span`` objects with ``__slots__``; outside
+  a flush a counted span is two clock reads and an add;
+* a disabled tracer (``NULL_TRACER``) costs one attribute check per hook,
+  and an engine call with no tracer bound and no scope active reads no
+  clock and allocates nothing for tracing.
 
 Span context crosses the scheduler -> executor -> worker-thread boundary
 via :class:`TraceHandle`, which rides ``DispatchCtx.trace``.  Because
 ``loop.run_in_executor`` does **not** propagate context to the worker
 thread, executors re-enter the handle's scope explicitly (via
 :meth:`TraceHandle.bind`); inside that scope the engine's
-:func:`engine_span` / :func:`engine_event` helpers attach pad/device/
-compile spans to the active flush without the engine importing anything
-from the serving layer.
+:func:`engine_call` / :func:`engine_span` / :func:`engine_event` helpers
+attach spans to the active flush without the engine importing anything
+from the serving layer. Outside a scope an engine call records into the
+Tracer bound to the model (``CompiledModel.tracer``).
 """
 from __future__ import annotations
 
+import bisect
 import itertools
 import threading
+import time
 from collections import OrderedDict, deque
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
+try:  # a profiler range that is a host event only (no user annotation)
+    from torch._C._profiler import _RecordFunctionFast as _Range
+    from torch.autograd import _profiler_enabled
+except ImportError:  # a torch without it: spans open no profiler range
+    _Range = None
+
 __all__ = [
-    "Span", "StageHist", "Tracer", "TraceHandle", "NULL_TRACER",
-    "STAGES", "TERMINALS", "engine_span", "engine_event",
-    "current_handle",
+    "Span", "StageHist", "Tracer", "TraceHandle", "Lap", "NULL_TRACER",
+    "STAGES", "TERMINALS", "ENGINE_SPANS", "COUNTED", "engine_call",
+    "end_call", "engine_span", "engine_event", "profile_range", "close_range",
 ]
 
 # Span taxonomy (the names histograms and tests key on).  "queue" is the
@@ -44,6 +87,11 @@ __all__ = [
 STAGES = ("queue", "flush_assemble", "pad_stage", "dispatch", "device",
           "validate", "retry", "total")
 TERMINALS = ("complete", "failed", "shed", "expire")
+# Counted spans: one count and one µs sum each per occurrence (engine call
+# or flush), from construction on (see the module docstring).
+ENGINE_SPANS = ("engine.stage", "engine.launch", "engine.sync",
+                "engine.unstage")
+COUNTED = ENGINE_SPANS + ("sched.resolve",)
 
 _ids = itertools.count(1)  # shared span/trace id source (GIL-atomic next())
 
@@ -95,12 +143,7 @@ class StageHist:
         self.n = 0
 
     def observe(self, us: float) -> None:
-        i = 0
-        for edge in self.EDGES_US:
-            if us <= edge:
-                break
-            i += 1
-        self.counts[i] += 1
+        self.counts[bisect.bisect_left(self.EDGES_US, us)] += 1
         self.sum_us += us
         self.n += 1
 
@@ -150,11 +193,12 @@ class _Flush:
 # the worker thread via TraceHandle.bind()/scope().
 # --------------------------------------------------------------------------
 
-_tls = threading.local()
+class _Local(threading.local):
+    handle: Optional["TraceHandle"] = None  # the flush scope active here
+    call: Optional["Lap"] = None  # the engine call running on this thread
 
 
-def current_handle() -> Optional["TraceHandle"]:
-    return getattr(_tls, "handle", None)
+_tls = _Local()
 
 
 class _Scope:
@@ -165,12 +209,106 @@ class _Scope:
         self.prev: Optional[TraceHandle] = None
 
     def __enter__(self) -> "_Scope":
-        self.prev = getattr(_tls, "handle", None)
+        self.prev = _tls.handle
         _tls.handle = self.handle
         return self
 
     def __exit__(self, *exc: Any) -> None:
         _tls.handle = self.prev
+
+
+def profile_range(name: str) -> Any:
+    """A torch profiler range named ``name``, entered, while a profiler
+    records; None otherwise (and where torch lacks the fast range).
+    Close it with :func:`close_range`."""
+    if _Range is None or not _profiler_enabled():
+        return None
+    rng = _Range(name)
+    rng.__enter__()
+    return rng
+
+
+def close_range(rng: Any) -> None:
+    if rng is not None:
+        rng.__exit__(None, None, None)
+
+
+class Lap:
+    """Consecutive counted spans on one thread: the first starts at
+    construction, :meth:`lap` closes the running span and starts the next
+    at the same clock reading, :meth:`end` closes the last. Each closed
+    span adds to ``tracer``'s accumulator and, with a ``handle``, lands on
+    that flush's trace; while a torch profiler records (checked once, at
+    construction) each is also a profiler range of its name. The
+    accumulator is not locked: engine calls on several threads at once may
+    lose an update."""
+
+    __slots__ = ("acc", "handle", "now", "name", "t", "rng", "depth")
+
+    def __init__(self, tracer: "Tracer", handle: Optional["TraceHandle"],
+                 now: Callable[[], float], name: str):
+        self.acc = tracer._acc
+        self.handle = handle
+        self.now = now
+        self.depth = 0  # engine entry points nested inside this call
+        self.name: Optional[str] = name
+        # the running span's profiler range; None throughout when no
+        # profiler records
+        self.rng = profile_range(name)
+        self.t = now()
+
+    def _settle(self, t: float) -> None:
+        if self.rng is not None:
+            self.rng.__exit__(None, None, None)
+        a = self.acc[self.name]
+        a[0] += 1
+        a[1] += t - self.t
+        if self.handle is not None:
+            self.handle.span(self.name, self.t, t)
+
+    def lap(self, name: str) -> None:
+        t = self.now()
+        self._settle(t)
+        self.name, self.t = name, t
+        if self.rng is not None:
+            self.rng = _Range(name)
+            self.rng.__enter__()
+
+    def end(self) -> None:
+        if self.name is not None:
+            self._settle(self.now())
+            self.name = None
+
+
+def engine_call(bound: Optional["Tracer"]) -> Optional[Lap]:
+    """Start one engine call's counted spans at ``engine.stage``: on the
+    flush whose scope is active on this thread, else on ``bound`` (the
+    model's Tracer). An engine entry point called inside a running call
+    joins it. Returns None — having read no clock and allocated nothing —
+    when there is neither. The caller ends what it got with
+    :func:`end_call`, also when it raises."""
+    lap = _tls.call
+    if lap is not None:
+        lap.depth += 1
+        return lap
+    h = _tls.handle
+    if h is not None:
+        lap = Lap(h.tracer, h, h.clock.now, "engine.stage")
+    elif bound is None or not bound.enabled:
+        return None
+    else:
+        lap = Lap(bound, None, bound.now, "engine.stage")
+    _tls.call = lap
+    return lap
+
+
+def end_call(lap: Lap) -> None:
+    """End an engine call started (or joined) by :func:`engine_call`."""
+    if lap.depth:
+        lap.depth -= 1
+        return
+    _tls.call = None
+    lap.end()
 
 
 class _EngineSpan:
@@ -182,7 +320,7 @@ class _EngineSpan:
     def __init__(self, name: str, attrs: Dict[str, Any]):
         self.name = name
         self.attrs = attrs
-        self.handle = getattr(_tls, "handle", None)
+        self.handle = _tls.handle
         self.t0 = 0.0
 
     def __enter__(self) -> "_EngineSpan":
@@ -198,15 +336,15 @@ class _EngineSpan:
 
 
 def engine_span(name: str, **attrs: Any) -> _EngineSpan:
-    """Time a stage inside the engine (pad_stage, device) and attach it to
-    the flush whose scope is active on this thread; no-op otherwise."""
+    """Time a stage inside the engine (pad_stage) and attach it to the
+    flush whose scope is active on this thread; no-op otherwise."""
     return _EngineSpan(name, attrs)
 
 
 def engine_event(name: str, **attrs: Any) -> None:
     """Record a point event (e.g. a bucket capture) against the active
     flush; no-op when no trace scope is active on this thread."""
-    h = getattr(_tls, "handle", None)
+    h = _tls.handle
     if h is not None:
         h.event(name, h.clock.now(), **attrs)
 
@@ -235,6 +373,10 @@ class TraceHandle:
         """Enter this flush's trace scope on the current thread."""
         return _Scope(self)
 
+    def lap(self, name: str) -> Lap:
+        """Start the counted span ``name`` on this flush."""
+        return Lap(self.tracer, self, self.clock.now, name)
+
     def bind(self, fn: Callable[..., Any]) -> Callable[..., Any]:
         """Wrap ``fn`` so it runs inside this flush's scope — used by
         off-loop executors whose worker threads don't inherit it."""
@@ -251,12 +393,30 @@ class Tracer:
     All retention is bounded: ``keep_traces`` finished request trees and
     ``keep_flushes`` finished flush records are kept for introspection
     (tests, selftest, export); older ones are evicted FIFO.
+
+    ``clock`` (an object with ``now()`` in seconds; ``time.monotonic`` when
+    None) stamps the counted spans of engine calls made outside a flush
+    scope; spans inside a flush take the batcher's clock.
+    ``clock_offset_ns`` is read once, here: ``time.time_ns()`` less the
+    clock's reading, in ns (None for a clock marked ``virtual``, such as
+    ``FakeClock``), so that a span's ``t * 1e9 + clock_offset_ns`` is on
+    the Unix-epoch timeline a torch profiler trace stamps.
     """
 
     def __init__(self, *, enabled: bool = True, flight: Any = None,
-                 keep_traces: int = 256, keep_flushes: int = 64):
+                 keep_traces: int = 256, keep_flushes: int = 64,
+                 clock: Any = None):
         self.enabled = enabled
         self.flight = flight
+        self.now: Callable[[], float] = (time.monotonic if clock is None
+                                         else clock.now)
+        self.clock_offset_ns: Optional[int] = (
+            None if getattr(clock, "virtual", False)
+            else time.time_ns() - round(self.now() * 1e9))
+        if flight is not None:
+            flight.clock_offset_ns = self.clock_offset_ns
+        # counted spans: name -> [occurrences, seconds]
+        self._acc: Dict[str, List[float]] = {n: [0, 0.0] for n in COUNTED}
         self._active: Dict[str, _Req] = {}
         self._flushes: Dict[str, _Flush] = {}
         self._done: "OrderedDict[str, Dict[str, Any]]" = OrderedDict()
@@ -440,30 +600,27 @@ class Tracer:
 
     # -- introspection ----------------------------------------------------
 
-    def request_tree(self, rid: str) -> Optional[Dict[str, Any]]:
-        return self._done.get(rid)
-
     def trees(self) -> List[Dict[str, Any]]:
         return list(self._done.values())
 
-    def span_sums_us(self, fid: str) -> Dict[str, Tuple[int, float]]:
-        """{span_name: (count, total_us)} over one flush's child spans."""
-        fl = self._flushes.get(fid) or self._recent_flushes.get(fid)
-        out: Dict[str, Tuple[int, float]] = {}
-        if fl is None:
-            return out
-        for sp in fl.spans:
-            n, tot = out.get(sp.name, (0, 0.0))
-            out[sp.name] = (n + 1, tot + sp.dur_s() * 1e6)
+    def counters(self) -> Dict[str, float]:
+        """The counted spans' accumulators as a flat dict with a fixed key
+        set: ``<span>.n`` and ``<span>.sum_us`` for each of
+        :data:`COUNTED`, zero before the first occurrence."""
+        out: Dict[str, float] = {}
+        for name in COUNTED:
+            n, s = self._acc[name]
+            out[name + ".n"] = n
+            out[name + ".sum_us"] = s * 1e6
         return out
 
     def stage_snapshot(self) -> Dict[str, Dict[str, Any]]:
         return {s: h.snapshot() for s, h in self.hists.items()}
 
     def stage_means_us(self) -> Dict[str, float]:
-        """The bench's ``stage_breakdown`` dict: mean per-request µs spent
-        in each headline stage (zeros count — a request with no retry
-        contributes 0 to the retry mean)."""
+        """``json_snapshot``'s ``stage_breakdown_us``: mean per-request µs
+        spent in each headline stage (zeros count — a request with no
+        retry contributes 0 to the retry mean)."""
         return {"queue_wait_us": self.hists["queue"].mean_us(),
                 "pad_us": self.hists["pad_stage"].mean_us(),
                 "device_us": self.hists["device"].mean_us(),
@@ -474,7 +631,9 @@ class Tracer:
                 "open_flushes": len(self._flushes),
                 "terminals": dict(self.counts),
                 "compile_events": self.compile_events,
-                "stages": self.stage_snapshot()}
+                "stages": self.stage_snapshot(),
+                "counters": self.counters(),
+                "clock_offset_ns": self.clock_offset_ns}
 
 
 #: Shared disabled tracer — the default everywhere a tracer is optional.

@@ -107,13 +107,19 @@ class ServingRegistry:
         """Admit ``model`` (an int8 ``CompiledModel``) under ``name``.
         ``overrides`` replace the registry-level batcher defaults
         (``max_batch`` / ``max_delay_s`` / ``max_queue`` / ``classes`` /
-        ``executor`` / ``tracer`` / ``cache``) for this model."""
+        ``executor`` / ``tracer`` / ``cache``) for this model. An enabled
+        tracer is also bound to the model (``model.tracer``), so that its
+        engine calls outside a flush are counted too."""
         if name in self._entries:
             raise ValueError(f"model {name!r} already registered")
         kw = {**self._defaults, "executor": self.executor, **overrides}
         batcher = MicroBatcher.for_model(
             model, warmup=warmup, name=name, clock=self.clock,
             metrics=ModelMetrics(now=self.clock.now()), **kw)
+        tracer = kw.get("tracer")
+        if tracer is not None and tracer.enabled:
+            # the model's calls outside a flush count on the same tracer
+            model.tracer = tracer
         self._entries[name] = _Entry(name, model, batcher)
         if self._started:  # late registration joins a running registry
             batcher.start()

@@ -60,7 +60,8 @@ from typing import Callable, Optional
 import numpy as np
 
 from repro_torch.core.engine import bucket_floor, dispatched_bucket_rows
-from repro_torch.obs.trace import NULL_TRACER, Tracer
+from repro_torch.obs.trace import (NULL_TRACER, Tracer, close_range,
+                                   profile_range)
 from .executor import DispatchCtx, InferenceExecutor, InlineExecutor, \
     RowOutcomes
 from .metrics import ModelMetrics
@@ -186,6 +187,8 @@ class FakeClock(Clock):
     sleepers in deadline order, yielding to the event loop between each so
     woken coroutines run to their next await before time moves further.
     No real time passes."""
+
+    virtual = True  # not time.monotonic: a Tracer keeps no epoch offset
 
     def __init__(self):
         self._t = 0.0
@@ -792,6 +795,7 @@ class MicroBatcher:
             handle = self.tracer.handle(fid, self.clock)
         else:  # untraced hot path: skip even the span-argument assembly
             fid = handle = None
+        rng = profile_range("flush_assemble") if fid is not None else None
         ex = self.executor
         detached = self._fast and not ex.inline and ex.detached
         # Prestaged assembly fast path: rows are copied straight into the
@@ -813,9 +817,11 @@ class MicroBatcher:
                 # shape) must poison its batch, not kill the scheduler
                 xs = np.stack([np.asarray(r.x) for r in reqs])
             except Exception as e:
+                close_range(rng)
                 self._fail(reqs, e, fid=fid)
                 return
         if fid is not None:
+            close_range(rng)
             self.tracer.span(fid, "flush_assemble", t_take,
                              self.clock.now(), rows=len(reqs))
         if ex.inline:
@@ -838,7 +844,7 @@ class MicroBatcher:
                 return                        # keeps serving
             finally:
                 self.metrics.observe_retire(len(reqs))
-            self._distribute(reqs, ys, t0, self.clock.now(), fid=fid)
+            self._resolve(reqs, ys, t0, self.clock.now(), fid)
         elif detached:
             # batch-granular future resolution: the executor runs the
             # flush off-loop and delivers it back as ONE loop callback
@@ -897,10 +903,7 @@ class MicroBatcher:
             self._fail(reqs, err, fid=fid)
             return
         self.tracer.span(fid, "dispatch", t0, t1)
-        if isinstance(ys, RowOutcomes):
-            self._distribute_outcomes(reqs, ys, t0, t1, fid=fid)
-        else:
-            self._distribute(reqs, ys, t0, t1, fid=fid)
+        self._resolve(reqs, ys, t0, t1, fid)
 
     def _validate_rows(self, ys, take: int):
         """One validation for both dispatch paths: inline and off-loop
@@ -928,11 +931,7 @@ class MicroBatcher:
         finally:
             self._in_flight_rows -= len(reqs)
             self.metrics.observe_retire(len(reqs))
-        if isinstance(ys, RowOutcomes):
-            self._distribute_outcomes(reqs, ys, t0, self.clock.now(),
-                                      fid=fid)
-        else:
-            self._distribute(reqs, ys, t0, self.clock.now(), fid=fid)
+        self._resolve(reqs, ys, t0, self.clock.now(), fid)
 
     def _wrap(self, err: Exception, rows: int,
               collateral: Optional[bool]) -> FlushError:
@@ -978,6 +977,21 @@ class MicroBatcher:
         if slo_s is not None and latency > slo_s:
             self.tracer.slo_miss(self.name, r.cls, t1, latency, slo_s)
         self.tracer.terminal(r.rid, t1, "complete")
+
+    def _resolve(self, reqs: list, ys, t0: float, t1: float, fid) -> None:
+        """Answer the flush's rows and do its accounting: ``_distribute``,
+        or ``_distribute_outcomes`` for the resilience layer's per-row
+        outcomes. Traced, one ``sched.resolve`` counted span a flush."""
+        dist = (self._distribute_outcomes if isinstance(ys, RowOutcomes)
+                else self._distribute)
+        if fid is None:
+            dist(reqs, ys, t0, t1, fid=None)
+            return
+        lap = self.tracer.handle(fid, self.clock).lap("sched.resolve")
+        try:
+            dist(reqs, ys, t0, t1, fid=fid)
+        finally:
+            lap.end()
 
     def _distribute(self, reqs: list, ys, t0: float, t1: float,
                     fid=None) -> None:

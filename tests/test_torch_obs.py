@@ -16,7 +16,8 @@ import numpy as np
 import pytest
 
 from repro_torch.obs.flight import FlightRecorder
-from repro_torch.obs.trace import NULL_TRACER, STAGES, TERMINALS, Tracer
+from repro_torch.obs.trace import (COUNTED, ENGINE_SPANS, NULL_TRACER,
+                                   STAGES, TERMINALS, Tracer)
 from repro_torch.serve.executor import InlineExecutor
 from repro_torch.serve.faults import FaultInjector
 from repro_torch.serve.metrics import ModelMetrics
@@ -412,11 +413,16 @@ def test_null_tracer_is_free_and_inert():
 
 
 def test_stage_taxonomy_is_closed():
-    """The exported stage set and terminal set are the documented
-    taxonomy — a new stage must be added deliberately (README table,
-    histograms, export) rather than leak in by typo."""
+    """The exported stage set, terminal set and counted-span set are the
+    documented taxonomy — a new stage must be added deliberately (README
+    table, histograms, export, counters) rather than leak in by typo."""
     assert STAGES == ("queue", "flush_assemble", "pad_stage", "dispatch",
                       "device", "validate", "retry", "total")
     assert TERMINALS == ("complete", "failed", "shed", "expire")
+    assert ENGINE_SPANS == ("engine.stage", "engine.launch", "engine.sync",
+                            "engine.unstage")
+    assert COUNTED == ENGINE_SPANS + ("sched.resolve",)
     tr = Tracer()
     assert set(tr.hists) == set(STAGES)
+    assert set(tr.counters()) == {f"{n}.{k}" for n in COUNTED
+                                  for k in ("n", "sum_us")}

@@ -160,11 +160,13 @@ def test_predict_q_staged_takes_physical_buffers(graphs):
 
 class _SpanNames:
     """A trace handle that records the names of the engine spans made while
-    it is the active scope (both packages' ``obs.trace._Scope``)."""
+    it is the active scope (both packages' ``obs.trace._Scope``); its
+    ``tracer`` takes the port's counted spans' sums."""
 
     def __init__(self):
         self.names = []
         self.clock = types.SimpleNamespace(now=lambda: 0.0)
+        self.tracer = t_trace.Tracer()
 
     def span(self, name, t0, t1, **attrs):
         self.names.append(name)
@@ -181,7 +183,9 @@ def test_pad_stage_spans_match_reference(graphs, name, use_kernels):
     batched call that pads, by a bucket fill (batch < bucket) or by an entry
     lane pad (a planned first op: every call on the kernel route), and by
     neither ``staged_infer`` nor a call that pads nothing. The port's kernel
-    route is held against the reference's Pallas route."""
+    route is held against the reference's Pallas route. The port also
+    records its counted engine spans (which the reference has not): stage,
+    launch and unstage once per bucket call on the CPU, in that order."""
     jg, tg = graphs[name]
     jm = JModel(jg, use_pallas=use_kernels).warmup_batched(4)
     tm = TModel(tg, use_kernels=use_kernels, device="cpu").warmup_batched(4)
@@ -190,14 +194,18 @@ def test_pad_stage_spans_match_reference(graphs, name, use_kernels):
                   for n in range(1, 5)]
                  + [lambda m, n=n: m.staged_infer(list(xs[:n]))
                     for n in (1, 3)]):
-        spans = []
+        spans, counted = [], []
         for mod, m in ((j_trace, jm), (t_trace, tm)):
             rec = _SpanNames()
             with mod._Scope(rec):
                 call(m)
-            spans.append(rec.names)
+            spans.append([n for n in rec.names if n not in t_trace.COUNTED])
+            counted.append([n for n in rec.names if n in t_trace.COUNTED])
         assert spans[1] == spans[0]
         assert spans[1][-1] == "device"
+        assert counted[0] == []
+        assert counted[1] == ["engine.stage", "engine.launch",
+                              "engine.unstage"]
     lane = tm.exec_plan.entry_shape(tg.inputs[0]) != tg.tensor(
         tg.inputs[0]).shape
     assert lane == use_kernels

@@ -11,8 +11,9 @@ carried across with ``repro.core.graph.save`` ->
 ``repro_torch.core.graph.load``. Compared with tolerance 0 (softmax rows
 ±1 LSB): every request's served row and terminal status, the retry and
 degrade counts and every other ``ModelMetrics`` counter, each trace id's
-span-stage sequence, and the OpenMetrics exposition with the
-``compile`` lines masked (a bucket capture is not an XLA compile).
+span-stage sequence (less the port's counted engine spans, ``engine.*``,
+which the reference does not record), and the OpenMetrics exposition with
+the ``compile`` lines masked (a bucket capture is not an XLA compile).
 
 Route names follow each package (the reference's primary of a plain engine
 is ``"compiled"``, the port's kernel engine's is ``"kernels"``), so they
@@ -39,7 +40,7 @@ from repro.serve import registry as j_registry
 from repro.serve import resilience as j_resilience
 from repro.serve import scheduler as j_scheduler
 from repro_torch.core.engine import CompiledModel as TModel
-from repro_torch.obs.trace import Tracer as TTracer
+from repro_torch.obs.trace import COUNTED, Tracer as TTracer
 from repro_torch.serve import executor as t_executor
 from repro_torch.serve import faults as t_faults
 from repro_torch.serve import registry as t_registry
@@ -155,7 +156,8 @@ def _run(pkg, models, script, faults: str):
     snap, text = asyncio.run(main())
     # trace ids come from a process-wide counter, so a request's trace is
     # found by its place in admission order (ids grow with admissions)
-    spans = [(t["terminal"], [s.name for s in t["spans"]])
+    spans = [(t["terminal"], [s.name for s in t["spans"]
+                              if s.name not in COUNTED])
              for t in sorted(tracer.trees(),
                              key=lambda t: int(t["trace_id"][1:]))]
     return outcomes, snap, text, spans, routes
