@@ -24,11 +24,13 @@ inside the graph.
 4. kernels  — each kernel at every distinct call the two paths launch, on
               seeded random inputs (int8 with nonzero z_w; float), held
               against its plain PyTorch version: ``qmatmul`` / ``qdwconv``
-              at every (shape, clamp bound, n_true, border) of the person
-              plan at buckets 1 and 8 (``qdwconv`` on the unpadded input,
-              its SAME border fused in); ``paged_qmatmul`` at every shape
-              the paged engines launch plus the 256×256 FC at pages 2/8/32
-              (int8 exact, two calls bit-identical); ``fmatmul`` at
+              / the fused conv (``qconv_fused``, conv0) at every (shape,
+              clamp bound, n_true, border) of the person plan at buckets 1
+              and 8 (``qdwconv`` on the unpadded input, its SAME border
+              fused in; the fused conv on the lane-padded input, its border
+              and taps gathered in the kernel); ``paged_qmatmul`` at every
+              shape the paged engines launch plus the 256×256 FC at pages
+              2/8/32 (int8 exact, two calls bit-identical); ``fmatmul`` at
               (8,16,8), (130,70,33) and the speech model's float FC as
               ``ops.fmatmul`` calls it, in float32 (1e-5) and bfloat16
               (5e-2), two calls bit-identical. Kernel, plain and library
@@ -38,18 +40,21 @@ inside the graph.
               128×4096×128 (float32, bfloat16), ``qmatmul`` at conv0's
               quantum-128 shape 18432×1152×128, ``qdwconv`` through its
               generic instantiation (5×5/s2, an asymmetric border) and at
-              C = 8, ``paged_qmatmul`` at 8×4000 page 1 and 4×256 page 128;
+              C = 8, ``paged_qmatmul`` at 8×4000 page 1 and 4×256 page 128,
+              the fused conv where the benchmark runs it (speech's 10×8/s2
+              conv at bucket 256, M 128,000; conv0 at bucket 32);
 5. layers   — person's kernel route walked op by op through the registry,
               each op fed the kernel route's own previous output and held
               against the plain route of the same op on a CPU copy of the
               same input (exact; softmax ±1 LSB); no ``F.pad`` may run
               inside ``qdwconv_planned`` (the kernel fills the border);
 6. serve    — the first main path, counted: person's ``predict_q`` at batch
-              1 (the per-call graph: one ``"percall"`` capture holding 15
-              ``qmatmul`` + 13 ``qdwconv`` calls; a second call launches
+              1 (the per-call graph: one ``"percall"`` capture holding 14
+              ``qmatmul`` + 1 fused conv (conv0, ``qconv_fused``) + 13
+              ``qdwconv`` calls; a second call launches
               nothing) and ``predict_q_many`` on batches 1, 3, 8
-              (``max_batch=8``): each captured bucket's graph holds 15
-              ``qmatmul`` + 13 ``qdwconv`` calls, replays call none; every
+              (``max_batch=8``): each captured bucket's graph holds the
+              same 28 calls, replays call none; every
               row held against the port's CPU plain route, and no border
               pad before a depthwise layer; per-call replay latency beside
               the eager per-call forward's; ``cost``: the per-call
@@ -299,7 +304,7 @@ inside the graph.
               engine (``qmatmul``) bit-identical.
 
 Each phase prints one JSON line (the ``kernels`` phase lists every call it
-timed, ``explicit`` the seven explicit cases, ``llm`` one line a config
+timed, ``explicit`` the nine explicit cases, ``llm`` one line a config
 and one for checks 2 and 4 before its own, ``train`` and ``launch`` one
 line a gate (and ``train`` one for the measurements) before their own);
 then the ``kernels``
@@ -335,8 +340,9 @@ H2D_ROWS_B8 = 8 * 96 * 96 * 1   # person's logical rows, one bucket-8 call
 INT8_OPS_PER_S = 1.979e15   # H100 SXM dense int8 tensor-core peak
 FLOPS_PER_S = {"float32": 67e12,     # H100 SXM float32, CUDA cores
                "bfloat16": 989e12}   # H100 SXM dense bf16 tensor-core peak
-LAUNCHES_PER_FORWARD = {"qmatmul": 15, "qdwconv": 13}
+LAUNCHES_PER_FORWARD = {"qmatmul": 14, "qmatmul_conv": 1, "qdwconv": 13}
 REPLACES = {"qmatmul": "src/repro/kernels/qmatmul.py:66",
+            "qmatmul_conv": "src/repro/kernels/qconv.py:57",
             "qdwconv": "src/repro/kernels/qdwconv.py:58",
             "paged_qmatmul": "src/repro/kernels/paged_matmul.py:37",
             "fmatmul": "src/repro/kernels/qmatmul.py:130",
@@ -362,9 +368,14 @@ DWCONV_EXPLICIT = (
     ((2, 12, 11, 32), (5, 5, 32), 20, ((2, 2), (1, 2, 2, 2), 5)),
     ((8, 48, 48, 8), (3, 3, 8), None, ((1, 1), (1, 1, 1, 1), -3)))
 PAGED_EXPLICIT = (((8, 4000), (4000, 4), 1), ((4, 256), (256, 256), 128))
+# the fused conv at the buckets the benchmark runs it: speech's 10x8/s2 conv
+# at 256 (speech.bulk's chunk) and person's conv0 at 32 (person.flood and
+# person.bulk): model -> bucket
+CONV_EXPLICIT = {"speech": 256, "person": 32}
 # the serving stack: three paper models behind build_paper_registry, kernel
 # calls each bucket's graph holds per model, clients and requests
-SERVING_LAUNCHES = {"sine": {"qmatmul": 3}, "speech": {"qmatmul": 2},
+SERVING_LAUNCHES = {"sine": {"qmatmul": 3},
+                    "speech": {"qmatmul": 1, "qmatmul_conv": 1},
                     "person": LAUNCHES_PER_FORWARD}
 SERVING_MAX_BATCH = 32
 SERVING_WORKERS = 4
@@ -479,7 +490,9 @@ class recording:
     appends its signature to ``calls`` (the launch still happens). A
     ``qmatmul`` signature's w shape is (N, K): the kernel takes the weight
     transposed. A ``qdwconv`` signature's last field is its geometry:
-    (stride, pads, z_x)."""
+    (stride, pads, z_x); a ``qmatmul_conv`` (``qconv_fused``) one's w shape
+    is the packed weight's (N, KP), its lanes field n_true and its last
+    field (kh, kw, stride, pads, c_true, z_x)."""
 
     def __enter__(self):
         from repro_torch.kernels import paged_matmul as pm_mod
@@ -488,7 +501,8 @@ class recording:
         self.mods = (mm_mod, dw_mod, pm_mod)
         current = []
         orig = self.orig = (mm_mod.qmatmul, dw_mod.qdwconv,
-                            pm_mod.paged_qmatmul, mm_mod.fmatmul)
+                            pm_mod.paged_qmatmul, mm_mod.fmatmul,
+                            mm_mod.qconv_fused)
 
         def mm(x, w, *consts, lo, hi, n_true=None):
             current.append(("qmatmul", tuple(x.shape), tuple(w.shape), lo, hi,
@@ -513,14 +527,24 @@ class recording:
                             None))
             return orig[3](x, w)
 
+        def cf(x, w, *consts, kh, kw, stride, pads, c_true, z_x,
+               lo=float("-inf"), hi=float("inf"), n_true=None):
+            current.append(("qmatmul_conv", tuple(x.shape), tuple(w.shape),
+                            lo, hi, n_true,
+                            (kh, kw, tuple(stride), tuple(pads), c_true,
+                             int(z_x))))
+            return orig[4](x, w, *consts, kh=kh, kw=kw, stride=stride,
+                           pads=pads, c_true=c_true, z_x=z_x, lo=lo, hi=hi,
+                           n_true=n_true)
+
         mm_mod.qmatmul, dw_mod.qdwconv, pm_mod.paged_qmatmul = mm, dw, pm
-        mm_mod.fmatmul = fm
+        mm_mod.fmatmul, mm_mod.qconv_fused = fm, cf
         return current
 
     def __exit__(self, *exc):
         mm_mod, dw_mod, pm_mod = self.mods
         (mm_mod.qmatmul, dw_mod.qdwconv, pm_mod.paged_qmatmul,
-         mm_mod.fmatmul) = self.orig
+         mm_mod.fmatmul, mm_mod.qconv_fused) = self.orig
         return False
 
 
@@ -539,6 +563,17 @@ def work(sig) -> tuple:
         return (m * k + k * n + m * n) * size, 2 * m * k * n, FLOPS_PER_S[sig[3]]
     if kind == "probe":
         return 2 * xs[0] * xs[1] * 4, xs[0] * xs[1], FLOPS_PER_S["float32"]
+    if kind == "qmatmul_conv":
+        # the bytes the function needs: the c_true real lanes of the input
+        # (not its padding lanes), the packed weight, the output; products
+        # over the real taps
+        b, h, w, _ = xs
+        n, kp = ws
+        kh, kw, _, _, c_true, _ = geo
+        oh, ow = conv_out_hw(xs, geo)
+        m = b * oh * ow
+        return (b * h * w * c_true + n * kp + 5 * 4 * n + m * n,
+                2 * m * kh * kw * c_true * n, INT8_OPS_PER_S)
     # qdwconv: the unpadded input (the kernel fills the border itself)
     b, h, w, c = xs
     kh, kw = ws[:2]
@@ -552,6 +587,13 @@ def dw_out_hw(xs, ws, geo) -> tuple:
     (sh, sw), (pt, pb, pl, pr), _ = geo
     return ((xs[1] + pt + pb - ws[0]) // sh + 1,
             (xs[2] + pl + pr - ws[1]) // sw + 1)
+
+
+def conv_out_hw(xs, geo) -> tuple:
+    """(OH, OW) of a ``qmatmul_conv`` call: its input, filter, stride and
+    pads."""
+    kh, kw, (sh, sw), (pt, pb, pl, pr), _, _ = geo
+    return (xs[1] + pt + pb - kh) // sh + 1, (xs[2] + pl + pr - kw) // sw + 1
 
 
 def bound_ms(sig) -> tuple:
@@ -589,7 +631,7 @@ def random_operands(sig, gen):
         return torch.randint(-128, 128, shape, generator=gen, device=dev,
                              dtype=torch.int16).to(torch.int8)
 
-    n = ws[0] if kind == "qmatmul" else ws[-1]
+    n = ws[0] if kind in ("qmatmul", "qmatmul_conv") else ws[-1]
     consts = (torch.randn(n, generator=gen, device=dev) * 5,
               torch.rand(n, generator=gen, device=dev) * 0.02 + 1e-4,
               torch.randint(-5000, 5000, (n,), generator=gen, device=dev,
@@ -652,12 +694,40 @@ def library_qdwconv(x, w, consts, lo, hi, c_true, geo):
     return q
 
 
+def library_qconv(x, w_packed, consts, lo, hi, n_true, geo):
+    """Yardstick only: the border pad of the real lanes, a cuDNN float32
+    convolution without TF32 (exact here: every sum is an integer below
+    2**24) + requant in torch. ``w_packed`` is (N, KP), its taps
+    tap-major and channel-minor."""
+    bias, resc, wsum, coff, zw = consts
+    kh, kw, stride, (pt, pb, pl, pr), c_true, z_x = geo
+    n, k = w_packed.shape[0], kh * kw * c_true
+    xf = F.pad(x[..., :c_true], (0, 0, pl, pr, pt, pb),
+               value=z_x).permute(0, 3, 1, 2).float()
+    wf = w_packed[:, :k].reshape(n, kh, kw, c_true).permute(0, 3, 1, 2)
+    wf = wf.float()
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        acc = F.conv2d(xf, wf, stride=stride)
+        sx = F.conv2d(xf, torch.ones_like(wf[:1]), stride=stride)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    inner = (acc.to(torch.int32).permute(0, 2, 3, 1)
+             - zw * sx.to(torch.int32).permute(0, 2, 3, 1) - wsum + coff)
+    y = torch.addcmul(bias, resc, inner.float())
+    q = y.clamp(lo, hi).round().clamp(-128, 127).to(torch.int8)
+    if n_true is not None:
+        q[..., n_true:] = 0
+    return q
+
+
 def phase_kernels(sigs):
     """Each distinct kernel call against its plain version, then timed."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.paged_matmul import paged_qmatmul
     from repro_torch.kernels.qdwconv import qdwconv
-    from repro_torch.kernels.qmatmul import fmatmul, qmatmul
+    from repro_torch.kernels.qmatmul import fmatmul, qconv_fused, qmatmul
 
     check(not torch.backends.cuda.matmul.allow_tf32,
           "torch.backends.cuda.matmul.allow_tf32 must be False")
@@ -700,6 +770,23 @@ def phase_kernels(sigs):
                 return library_qmatmul(x, w, consts, lo_t, hi_t,
                                        int_mm=use_int_mm)[0]
             lib_label = "int_mm" if use_int_mm else "matmul_f64"
+        elif kind == "qmatmul_conv":
+            kh, kw, stride, pads, c_true, z_x = geo
+            x[..., c_true:] = 0         # a planned producer's padding lanes
+            w[:, kh * kw * c_true:] = 0  # the packed K's zero tail
+            conv_kw = dict(kh=kh, kw=kw, stride=stride, pads=pads,
+                           c_true=c_true, z_x=z_x, lo=lo, hi=hi,
+                           n_true=lanes)
+
+            def kern():
+                return qconv_fused(x, w, *consts, **conv_kw)
+
+            def plain():
+                return ref.qconv_fused_ref(x, w, *consts, **conv_kw)
+
+            def lib():
+                return library_qconv(x, w, consts, lo_t, hi_t, lanes, geo)
+            lib_label = "cudnn_f32"
         elif kind == "fmatmul":
             def kern():
                 return fmatmul(x, w)
@@ -826,7 +913,7 @@ def reset_counts() -> None:
     from repro_torch.kernels import qdwconv as dw_mod
     from repro_torch.kernels import qmatmul as mm_mod
     mm_mod.launches = dw_mod.launches = pm_mod.launches = 0
-    mm_mod.fmatmul_launches = kops.probe_launches = 0
+    mm_mod.fmatmul_launches = mm_mod.conv_launches = kops.probe_launches = 0
 
 
 def ptxas_report(log: str) -> dict:
@@ -885,6 +972,15 @@ def phase_explicit(explicit, measured, built):
             config, mkn = {"splits": splits, "kslice": kslice}, [m, k, ws[1]]
             t = "f" if sig[3] == "float32" else "13__nv_bfloat16"
             tags = [f"fmatmul_kernelI{t}E", f"fmatmul_reduceI{t}E"]
+        elif kind == "qmatmul_conv":
+            kh, kw, stride, pads, c_true, z_x = sig[6]
+            oh, ow = conv_out_hw(xs, sig[6])
+            bk = mm_mod.stage_bytes(ws[1])
+            config = {"filter": [kh, kw], "stride": list(stride),
+                      "pads": list(pads), "c_true": c_true, "z_x": z_x,
+                      "slab_bytes": bk}
+            mkn = [xs[0] * oh * ow, ws[1], ws[0]]
+            tags = [f"qmatmul_kernel_convILi{bk}E"]
         elif kind == "paged_qmatmul":
             m, k = xs
             sc, kc, flat = pm_mod.paged_split(k, ws[1], sig[5])
@@ -911,8 +1007,9 @@ def phase_explicit(explicit, measured, built):
                                        "max_abs_err")},
             "bound_share": r["bound_ms"] / r["ms"],
             "ms_le_library": r["ms"] <= r["library_ms"],
-            "ptxas": {fn: rep for fn, rep in reports[kind].items()
-                      if any(tag in fn for tag in tags)}})
+            "ptxas": {fn: rep for fn, rep in reports[
+                {"qmatmul_conv": "qmatmul"}.get(kind, kind)].items()
+                if any(tag in fn for tag in tags)}})
     emit({"phase": "explicit", "cases": cases})
 
 
@@ -1021,7 +1118,9 @@ def phase_paging(models, fc256, float_speech):
 
     # -- checks ---------------------------------------------------------------
     check(launches["probe"] == 1, f"probe launches {launches['probe']}")
-    per_fwd_q = {"sine": (1, 0), "speech": (1, 0), "person": (14, 13)}
+    # (qmatmul, qdwconv, fused conv) a forward beside the paged FC
+    per_fwd_q = {"sine": (1, 0, 0), "speech": (0, 0, 1),
+                 "person": (13, 13, 1)}
     report = {}
     for name, (g, xs) in models.items():
         shape, paged, paged_per_fwd, fc_op = PAGED[name]
@@ -1029,14 +1128,15 @@ def phase_paging(models, fc256, float_speech):
         check(c["paged_qmatmul"] == paged_per_fwd * n_fwd,
               f"{name}: paged_qmatmul launches {c['paged_qmatmul']} for "
               f"{n_fwd} forwards, expected {paged_per_fwd} per forward")
-        check((c["qmatmul"], c["qdwconv"]) == tuple(
+        check((c["qmatmul"], c["qdwconv"], c["qmatmul_conv"]) == tuple(
             v * n_fwd for v in per_fwd_q[name]),
             f"{name}: unpaged launches {c}")
         check(len(percall_launches(engines[name])) == 1,
               f"{name}: per-call captures {engines[name].compile_log}")
         for e in engines[name].compile_log:
             gc = e["launches"]
-            check((gc["paged_qmatmul"], gc["qmatmul"], gc["qdwconv"])
+            check((gc["paged_qmatmul"], gc["qmatmul"], gc["qdwconv"],
+                   gc["qmatmul_conv"])
                   == (paged_per_fwd,) + per_fwd_q[name],
                   f"{name} {e['kind']} {e.get('bucket')}: kernel calls in "
                   f"its graph {gc}")
@@ -1521,6 +1621,8 @@ COLDSTART_NAMES = ("sine", "speech", "person")
 COLDSTART_BATCHES = (1, 3, 8)
 COLDSTART_BUCKETS = 6          # buckets 1..32 per engine route
 COLDSTART_LIBRARIES = {"qmatmul", "qdwconv", "probe"}
+# the kernels those libraries launch (the fused conv is in qmatmul's)
+COLDSTART_KERNELS = COLDSTART_LIBRARIES | {"qmatmul_conv"}
 
 
 class _Timers:
@@ -1747,7 +1849,7 @@ def phase_coldstart(build_wall_s: float, nvcc_s: dict) -> dict:
           f"the warm boot wrote to its build directory: {warm['build_dir']}")
     for label, doc in (("cold", cold), ("warm", warm), ("corrupt", corrupt)):
         check({k for k, v in doc["launches"].items() if v}
-              == COLDSTART_LIBRARIES, f"{label} boot launches: "
+              == COLDSTART_KERNELS, f"{label} boot launches: "
                                       f"{doc['launches']}")
     check(warm["launches"] == cold["launches"],
           f"launches: warm {warm['launches']}, cold {cold['launches']}")
@@ -3575,20 +3677,30 @@ def main() -> int:
             for m, k, n in sorted(engine_mkn) + list(FMATMUL_SHAPES):
                 kops.fmatmul(torch.zeros((m, k), dtype=dtype, device="cuda"),
                              torch.zeros((k, n), dtype=dtype, device="cuda"))
-    conv0 = calls[max(BUCKETS)][0]  # conv0 at bucket 8: its bounds, n_true
-    check(conv0[0] == "qmatmul", f"first call of a forward: {conv0}")
+    # the first qmatmul call at bucket 8 (pw1: conv0 runs on the fused
+    # conv): its bounds and n_true for the explicit qmatmul case
+    conv0 = next(s for s in calls[max(BUCKETS)] if s[0] == "qmatmul")
     qm_m, qm_k, qm_n = QMATMUL_EXPLICIT
     fm_m, fm_k, fm_n = FMATMUL_EXPLICIT
     paged_sigs = ([s for pc in paged_calls.values() for b in pc
                    for s in pc[b] if s[0] == "paged_qmatmul"]
                   + [s for s in fc_calls if s[0] == "paged_qmatmul"])
+    # the fused conv where the benchmark runs it: the recorded call with the
+    # bucket's batch (speech's from its paged engine, whose conv is unpaged)
+    conv_recorded = {
+        "speech": paged_calls["speech"][max(PAGED_BUCKETS)],
+        "person": calls[max(BUCKETS)]}
+    conv_explicit = []
+    for name, bucket in CONV_EXPLICIT.items():
+        sig = next(s for s in conv_recorded[name] if s[0] == "qmatmul_conv")
+        conv_explicit.append(sig[:1] + ((bucket,) + sig[1][1:],) + sig[2:])
     explicit = ([("qmatmul", (qm_m, qm_k), (qm_n, qm_k)) + conv0[3:]] + [
         ("fmatmul", (fm_m, fm_k), (fm_k, fm_n), dtype, None, None, None)
         for dtype in ("float32", "bfloat16")]
         + [("qdwconv", xs, ws, -20.0, 90.0, lanes, geo)
            for xs, ws, lanes, geo in DWCONV_EXPLICIT]
         + [next(s for s in paged_sigs if s[1:3] == (xs, ws) and s[5] == page)
-           for xs, ws, page in PAGED_EXPLICIT])
+           for xs, ws, page in PAGED_EXPLICIT] + conv_explicit)
     sigs = ([s for b in calls for s in calls[b]] + paged_sigs + fm_sigs
             + explicit)
     measured = phase_kernels(sigs)
@@ -3752,15 +3864,18 @@ def main() -> int:
     paged_fwd = {b: [s for pc in paged_calls.values() for s in pc[b]]
                  for b in (1, 8)}
     fwd = {"qmatmul": (calls, "person"), "qdwconv": (calls, "person"),
+           "qmatmul_conv": (calls, "person"),
            "paged_qmatmul": (paged_fwd, "sine+speech+person (paged)"),
            "fmatmul": (float_calls, "speech float")}
     kernels = []
-    for kname in ("qmatmul", "qdwconv", "paged_qmatmul", "fmatmul"):
+    for kname in ("qmatmul", "qmatmul_conv", "qdwconv", "paged_qmatmul",
+                  "fmatmul"):
         fcalls, model = fwd[kname]
         errs = [measured[s]["max_abs_err"] for b in fcalls for s in fcalls[b]
                 if s[0] == kname]
+        source = "qmatmul" if kname == "qmatmul_conv" else kname
         entry = {"name": kname, "route": "cuda",
-                 "source": f"src/repro_torch/kernels/csrc/{kname}.cu",
+                 "source": f"src/repro_torch/kernels/csrc/{source}.cu",
                  "replaces": REPLACES[kname], "launches": launches[kname],
                  "max_abs_err": max(errs), "per_forward_of": model,
                  "bucket": 1}
@@ -3770,6 +3885,11 @@ def main() -> int:
         entry["bound_by"] = max(set(by), key=by.count)
         entry["per_forward_bucket8"] = {
             key: per_forward(fcalls, measured, 8, kname, key) for key in keys}
+        if kname == "qmatmul_conv":  # where the benchmark runs it
+            entry["explicit"] = [
+                {"of": name, "bucket": CONV_EXPLICIT[name], "x": list(s[1]),
+                 **{key: measured[s][key] for key in keys + ("bound_by",)}}
+                for name, s in zip(CONV_EXPLICIT, conv_explicit)]
         kernels.append(entry)
     kernels.append({"name": "probe", "route": "cuda",
                     "source": "src/repro_torch/kernels/csrc/probe.cu",

@@ -23,10 +23,12 @@ Derivation, mirroring the lowerings (``repro_torch.kernels.ops`` and
 * planned kernel route: one entry pad of each batched graph input whose
   entry layout is lane-padded (``ExecutionPlan.lower``); an FC's pad of its
   input to ``(M', in_lanes)`` per call, or of its lanes batched, where the
-  producer's physical shape differs; a conv's lane pad, its SAME border
-  (``_pad_border_planned`` skips a zero halo), its im2col concatenation and
-  its K pad; a depthwise conv's lane pad and, on the CPU only, its SAME
-  border (the kernel's plain version pads; the CUDA kernel fuses it).
+  producer's physical shape differs; a conv's lane pad, and, on the CPU
+  or for a 1-tap filter, its SAME border (``_pad_border_planned`` skips a
+  zero halo), its im2col concatenation and its K pad (on the card a
+  multi-tap conv is one fused kernel: border, taps and packed K inside); a
+  depthwise conv's lane pad and, on the CPU only, its SAME border (the
+  kernel's plain version pads; the CUDA kernel fuses it).
 * a paged FullyConnected (Sec. 4.3): one concatenation of its pages,
   except on the card's kernel route, where the paged kernel writes each
   page in place. (The reference leaves paged ops out of its budget; the
@@ -52,6 +54,7 @@ from repro_torch.core import graph as G
 from repro_torch.core import registry as R
 from repro_torch.core.engine import ExecutionPlan, _DTYPES
 from repro_torch.core.ops_ref import same_pads
+from repro_torch.kernels.ops import conv_runs_fused
 
 from .report import ERROR, Finding, WARNING
 
@@ -151,14 +154,17 @@ def pad_budget(plan: ExecutionPlan, batched: bool = False,
                                             f"-> {lay.in_lanes}"))
                 halo = padding == "SAME" and _halo_nonzero(in_phys, kh, kw,
                                                            stride)
-                if lay.kind == "conv":
+                # the fused conv kernel makes its border, taps and packed K
+                # itself, with no torch call; the im2col route pads K where
+                # the weight's rows outnumber a patch's kh*kw*in_lanes
+                if lay.kind == "conv" and not conv_runs_fused(kh * kw, dev):
                     if halo:
                         items.append((where, 1, "SAME border"))
                     if kh * kw > 1:
                         items.append((where, 1, "im2col concatenation"))
-                    if tuple(lay.w_nk.shape)[1] != kh * kw * lay.in_lanes:
+                    if lay.w_phys.shape[0] != kh * kw * lay.in_lanes:
                         items.append((where, 1, "im2col K pad"))
-                elif halo and dev.type == "cpu":
+                elif lay.kind == "dwconv" and halo and dev.type == "cpu":
                     items.append((where, 1, "SAME border (plain depthwise "
                                             "version; the CUDA kernel fills "
                                             "it itself)"))

@@ -214,8 +214,9 @@ def lint_weak_types(plan: ExecutionPlan) -> List[Finding]:
         for i, lay in plan.layout.layouts.items():
             named = [(f"consts[{j}]", c) for j, c in enumerate(lay.consts)]
             named.append(("w_phys", lay.w_phys))
-            if lay.w_nk is not None:
-                named.append(("w_nk", lay.w_nk))
+            for field in ("w_nk", "w_packed"):
+                if getattr(lay, field) is not None:
+                    named.append((field, getattr(lay, field)))
             for field, c in named:
                 if not _on(c, dev):
                     out.append(Finding(

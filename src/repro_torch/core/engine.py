@@ -45,6 +45,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import threading
 from typing import Optional
@@ -268,6 +269,22 @@ class _EagerBucket:
         return tuple(o[:rows].numpy().copy() for o in outs)
 
 
+@contextlib.contextmanager
+def _no_collection():
+    """Python's cyclic collector off for a CUDA-graph capture. A collection
+    inside the capture can free a dead engine's graph, and destroying a
+    graph (or freeing its memory pool) while a stream captures is not
+    permitted: the capture is invalidated. ``torch.cuda.graph`` no longer
+    collects before it captures, so the garbage waits until after."""
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()
+
+
 class _GraphExecutable:
     """An executable on CUDA: a forward (the per-call one, or a bucket's
     batched one) captured as one CUDA graph over static device inputs of
@@ -308,8 +325,9 @@ class _GraphExecutable:
         torch.cuda.current_stream(device).wait_stream(capture)
         self.graph = torch.cuda.CUDAGraph()
         before = launch_counts()
-        with torch.cuda.graph(self.graph, pool=pool, stream=capture,
-                              capture_error_mode="thread_local"):
+        with _no_collection(), torch.cuda.graph(
+                self.graph, pool=pool, stream=capture,
+                capture_error_mode="thread_local"):
             self.outputs = tuple(o.contiguous() for o in fn(*self.inputs))
         self.launches = {k: v - before[k]
                          for k, v in launch_counts().items()}

@@ -92,7 +92,9 @@ class OpLayout:
     ``w_phys``/``consts`` are the lane-padded weights and folded constants
     (numpy from :func:`plan_layout`, device tensors after :meth:`to`);
     ``w_nk`` is ``w_phys`` transposed for the qmatmul kernel (fc and conv;
-    None for dwconv, whose kernel takes ``w_phys``).
+    None for dwconv, whose kernel takes ``w_phys``); ``w_packed`` is a
+    multi-tap conv's weight with K packed (:func:`pack_conv_taps`), the one
+    the fused conv kernel takes (None for every other op).
     ``in_lanes``/``out_shape`` describe the padded activation layout the op
     consumes/produces; ``n_true`` is the logical output channel count (the
     kernels zero every lane beyond it, which is what makes chained padded
@@ -110,12 +112,14 @@ class OpLayout:
     c_true: int          # logical input channels (border-fill mask for conv)
     z_x: int             # input zero point (SAME border fill)
     w_nk: object = None  # fc/conv: w_phys.T (N', K'), K contiguous
+    w_packed: object = None  # multi-tap conv: (N', round_up(kh*kw*c_true, 32))
 
     def to(self, device) -> "OpLayout":
+        def move(a):
+            return None if a is None else torch.as_tensor(a, device=device)
         return dataclasses.replace(
-            self, w_phys=torch.as_tensor(self.w_phys, device=device),
-            w_nk=(None if self.w_nk is None
-                  else torch.as_tensor(self.w_nk, device=device)),
+            self, w_phys=move(self.w_phys), w_nk=move(self.w_nk),
+            w_packed=move(self.w_packed),
             consts=tuple(torch.as_tensor(c, device=device)
                          for c in self.consts))
 
@@ -187,7 +191,9 @@ def plan_layout(g: G.Graph, folded: dict, quantum: int = MXU_LANES,
             w_phys[:, :cout] = f.reshape(kh * kw * cin_p, cout)
             lay = OpLayout("conv", w_phys, _planned_consts(fc, cout, np_),
                            lo, hi, cout, cin_p, y_t.shape[:3] + (np_,),
-                           cin, z_x, np.ascontiguousarray(w_phys.T))
+                           cin, z_x, np.ascontiguousarray(w_phys.T),
+                           pack_conv_taps(w_phys, kh, kw, cin)
+                           if kh * kw > 1 else None)
         else:  # DEPTHWISE_CONV_2D
             if w.shape[3] != 1:
                 raise ValueError("depth multiplier 1 only (the kernel contract)")
@@ -211,6 +217,27 @@ def plan_layout(g: G.Graph, folded: dict, quantum: int = MXU_LANES,
             if t.shape[-1] != lay.in_lanes:
                 entry_phys[tid] = tuple(t.shape[:-1]) + (lay.in_lanes,)
     return LayoutPlan(layouts, phys, entry_phys, quantum)
+
+
+#: The packed K of a multi-tap conv is a multiple of this: one int8
+#: ``mma.m16n8k32`` depth, the qmatmul kernel's ``QUANTUM``.
+PACK = 32
+
+
+def pack_conv_taps(w_phys: np.ndarray, kh: int, kw: int,
+                   c_true: int) -> np.ndarray:
+    """A planned conv's (kh*kw*Cin', N') weight with K packed, transposed:
+    (N', round_up(kh*kw*c_true, PACK)) int8, K contiguous. Row n holds the
+    ``c_true`` real lanes of each tap, tap-major and channel-minor (the
+    order of ``filter.reshape(kh*kw*c_true, N')``), then zeros. The fused
+    conv kernel gathers its input rows in this order, so a lane-padded
+    layer of one channel contracts 9 or 80 bytes of K, not 288 or 2,560."""
+    n_pad = w_phys.shape[1]
+    taps = w_phys.reshape(kh * kw, -1, n_pad)[:, :c_true, :]
+    k = kh * kw * c_true
+    out = np.zeros((n_pad, round_up(k, PACK)), np.int8)
+    out[:, :k] = taps.reshape(k, n_pad).T
+    return out
 
 
 def _planned_consts(fc: FoldedConsts, n: int, n_pad: int) -> tuple:

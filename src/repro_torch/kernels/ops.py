@@ -13,8 +13,10 @@ Two families of entry points, with the JAX package's shapes:
   only at graph entry), and the output stays padded with its padding lanes
   zeroed by the kernel.
 
-Both families give SAME borders the input zero point: the conv wrappers
-pre-pad them, the depthwise kernel fills them itself. Besides them:
+Both families give SAME borders the input zero point: the per-call conv
+wrapper and the planned conv's plain route pre-pad them; the fused conv
+kernel (a planned multi-tap conv on the card) and the depthwise kernel fill
+them themselves. Besides them:
 ``paged_fc`` (the engine's paged route on logical shapes), ``fmatmul`` (the
 float FullyConnected product) and ``can_launch_kernels`` (the probe that
 builds and launches a trivial kernel once and says why the kernel route is
@@ -204,7 +206,7 @@ def qmatmul_planned_batched(x_q, lay):
 
 
 # ---------------------------------------------------------------------------
-# CONV_2D — Eq. (7) via im2col on the qmatmul kernel
+# CONV_2D — Eq. (7): im2col on the qmatmul kernel, or its fused conv variant
 # ---------------------------------------------------------------------------
 
 def qconv_folded(x_q, f_q, fc: FoldedConsts, *, stride, padding,
@@ -245,11 +247,31 @@ def _pad_border_planned(x_q, kh, kw, stride, padding, z_x: int, c_true: int):
     return xp
 
 
+def conv_runs_fused(taps: int, device) -> bool:
+    """Whether a planned Conv2D of ``taps`` = kh*kw filter taps runs on
+    ``device`` as the fused conv kernel (``qmatmul.qconv_fused``): a
+    multi-tap conv on a CUDA device does; a 1x1 conv (a reshape onto
+    ``qmatmul``) and any conv on the CPU (im2col + the plain ``qmatmul``)
+    do not. :func:`qconv_planned` dispatches by it, and
+    ``analysis.budget`` derives the card's pad calls from it."""
+    return taps > 1 and torch.device(device).type == "cuda"
+
+
 def qconv_planned(x_q, lay, *, kh, kw, stride, padding):
     """Planned-layout Conv2D: lane-padded NHWC in (padded here only at graph
-    entry), lane-padded NHWC out with padding lanes zeroed."""
+    entry), lane-padded NHWC out with padding lanes zeroed. By the filter:
+    a multi-tap conv on a CUDA tensor is one launch of the fused conv
+    kernel (SAME border, taps and packed K inside: no pad, no im2col copy);
+    a 1x1/s1 conv is a reshape onto ``qmatmul``; a CPU tensor takes the
+    plain version of im2col + ``qmatmul``."""
     stride = tuple(stride)
     x_q = _lane_pad(x_q, lay.in_lanes)
+    if conv_runs_fused(kh * kw, x_q.device):
+        return _qm.qconv_fused(
+            x_q.contiguous(), torch.as_tensor(lay.w_packed, device=x_q.device),
+            *_planned_consts(lay, x_q.device), kh=kh, kw=kw, stride=stride,
+            pads=_border(x_q, kh, kw, stride, padding), c_true=lay.c_true,
+            z_x=int(lay.z_x), lo=lay.lo, hi=lay.hi, n_true=_n_true(lay))
     x_q = _pad_border_planned(x_q, kh, kw, stride, padding, lay.z_x,
                               lay.c_true)
     return _qc.qconv2d(x_q, torch.as_tensor(lay.w_nk, device=x_q.device),

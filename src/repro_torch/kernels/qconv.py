@@ -9,6 +9,17 @@ Cout)`` for HWIO filters). Zero K padding adds nothing to ΣXW or ΣX, so
 the result is exact after slicing; the kernel masks ragged rows, so M is
 not padded. The 1×1/stride-1 case (the 13 pointwise convs of MobileNetV1)
 is a pure reshape.
+
+This is the per-call route's conv (``ops.qconv_folded``) and, on CPU
+tensors, the planned one. A planned multi-tap conv on the card
+(``ops.qconv_planned``: kh·kw > 1 and a CUDA tensor) never builds this
+matrix: at a lane-padded layout it is almost all zeros (speech's 10×8 conv
+of one channel at 32 lanes: K 2,560, of which 80 real). It runs as one
+launch of ``qmatmul.qconv_fused``, the qmatmul kernel's implicit-GEMM
+variant: the kernel gathers each row's real lanes from the activation
+where it lies, fills the SAME border with z_X, and contracts K packed to
+round_up(kh·kw·c_true, 32) against the weight packed once at plan time
+(``preprocess.pack_conv_taps``), bit for bit the result of this route.
 """
 from __future__ import annotations
 

@@ -1,13 +1,15 @@
 """Quantized int8 matmul — the FullyConnected hot-spot (Eq. 3) on the card —
-and the float matmul of the float FullyConnected path.
+its fused multi-tap Conv2D variant (Eq. 7), and the float matmul of the
+float FullyConnected path.
 
 Port of ``repro.kernels.qmatmul.qmatmul`` and ``fmatmul``. The kernels are
 hand-written CUDA C++ for sm_90a (``csrc/qmatmul.cu``, ``csrc/fmatmul.cu``;
-their header notes give the designs). :func:`qmatmul` and :func:`fmatmul`
-check their operands, allocate the output and launch the kernel for CUDA
-tensors, and run the plain versions (``ref.qmatmul_ref``,
-``ref.fmatmul_ref``) for CPU tensors. There is no other route: a CUDA
-tensor launches the kernel or raises.
+their header notes give the designs). :func:`qmatmul`, :func:`qconv_fused`
+and :func:`fmatmul` check their operands, allocate the output and launch
+the kernel for CUDA tensors, and run the plain versions
+(``ref.qmatmul_ref``, ``ref.qconv_fused_ref``, ``ref.fmatmul_ref``) for CPU
+tensors. There is no other route: a CUDA tensor launches the kernel or
+raises.
 """
 from __future__ import annotations
 
@@ -18,7 +20,7 @@ import torch
 
 from . import _build
 from ._build import check_operands, cuda_stream, ptr
-from .ref import fmatmul_ref, qmatmul_ref
+from .ref import fmatmul_ref, qconv_fused_ref, qmatmul_ref
 
 #: K and N of :func:`qmatmul` must be multiples of this: one
 #: ``mma.m16n8k32`` depth of int8, and the lane quantum the engine plans at.
@@ -33,12 +35,20 @@ launches = 0
 #: The same count for the float kernel (:func:`fmatmul`); one per call, its
 #: reduction pass included.
 fmatmul_launches = 0
+#: The same count for the fused conv variant (:func:`qconv_fused`).
+conv_launches = 0
 
 
 @functools.cache
 def _kernel():
     return _build.function("qmatmul", "repro_qmatmul",
                            [_P] * 8 + [_I] * 3 + [_F, _F] + [_I] * 4 + [_P])
+
+
+@functools.cache
+def _ckernel():
+    return _build.function("qmatmul", "repro_qconv",
+                           [_P] * 8 + [_I] * 16 + [_F, _F] + [_I] * 2 + [_P])
 
 
 @functools.cache
@@ -52,13 +62,19 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+def stage_bytes(k: int) -> int:
+    """The bytes of K a pipeline stage of ``csrc/qmatmul.cu`` carries (its
+    BK; a conv slab's too): K itself up to 64, else 128."""
+    return 32 if k <= 32 else 64 if k <= 64 else 128
+
+
 def block_tile(m: int, k: int, n: int) -> tuple:
     """The (BM, BN, BK) tile of ``csrc/qmatmul.cu`` for an (M, K, N)
     product: 64 x 64 blocks where N allows (128 x 64 from 4096 rows on),
     else 128 x 32 -- warps of 32 x 32 either way; BK, the bytes of K a
     pipeline stage carries: K itself up to 64, else 128. (Chosen from a
     sweep of tiles at the person path's shapes on the H100.)"""
-    bk = 32 if k <= 32 else 64 if k <= 64 else 128
+    bk = stage_bytes(k)
     if n % 64:
         return 128, 32, bk
     return (128 if m >= 4096 else 64), 64, bk
@@ -99,6 +115,69 @@ def qmatmul(x_q, w_nk, bias_term, rescale, w_sum_zx, const_off, z_w, *,
         bm, bn, bk, cuda_stream(x_q))
     _build.launch_check("qmatmul", err)
     launches += 1
+    return out
+
+
+def qconv_fused(x_q, w_packed, bias_term, rescale, w_sum_zx, const_off, z_w,
+                *, kh, kw, stride, pads, c_true, z_x, lo=float("-inf"),
+                hi=float("inf"), n_true=None):
+    """Quantized Conv2D as one implicit-GEMM launch of the qmatmul kernel's
+    conv variant: x_q (B, H, W, L) int8 NHWC, of whose L lanes the first
+    ``c_true`` are real (the rest zero, as a planned producer leaves them);
+    w_packed (N, KP) int8, the filter's taps packed and transposed
+    (``preprocess.pack_conv_taps``: KP = round_up(kh*kw*c_true, 32));
+    per-channel consts (N,); ``pads`` (top, bottom, left, right) filled
+    with ``z_x`` inside the kernel. Returns (B, OH, OW, N) int8, columns
+    >= ``n_true`` zero. N must be a multiple of :data:`QUANTUM`."""
+    global conv_launches
+    if x_q.dim() != 4:
+        raise ValueError(f"qconv_fused: x_q must be NHWC, got {tuple(x_q.shape)}")
+    b, h, w, lanes = x_q.shape
+    n, kp = w_packed.shape
+    check_operands("qconv_fused", dict(
+        x_q=x_q, w_packed=w_packed, bias_term=bias_term, rescale=rescale,
+        w_sum_zx=w_sum_zx, const_off=const_off, z_w=z_w), dict(
+        x_q=(torch.int8, (b, h, w, lanes)), w_packed=(torch.int8, (n, kp)),
+        bias_term=(torch.float32, (n,)), rescale=(torch.float32, (n,)),
+        w_sum_zx=(torch.int32, (n,)), const_off=(torch.int32, (n,)),
+        z_w=(torch.int32, (n,))))
+    sh, sw = (int(v) for v in stride)
+    pt, pb, pl, pr = (int(v) for v in pads)
+    k = kh * kw * c_true
+    if not 0 < c_true <= lanes:
+        raise ValueError(f"qconv_fused: c_true {c_true} not in 1..{lanes}")
+    oh = (h + pt + pb - kh) // sh + 1 if sh > 0 else 0
+    ow = (w + pl + pr - kw) // sw + 1 if sw > 0 else 0
+    if min(kh, kw, oh, ow) < 1 or min(pt, pb, pl, pr) < 0:
+        raise ValueError(f"qconv_fused: no output for a {kh}x{kw} filter, "
+                         f"stride {(sh, sw)}, pads {tuple(pads)} over "
+                         f"{(h, w)}")
+    if kp != -(-k // QUANTUM) * QUANTUM:
+        raise ValueError(f"qconv_fused: packed K {kp} is not {k} taps x "
+                         f"lanes rounded up to {QUANTUM}")
+    if n % QUANTUM or n == 0 or b == 0:
+        raise ValueError(f"qconv_fused: N {n} must be a positive multiple "
+                         f"of {QUANTUM}, B {b} positive")
+    if not -128 <= int(z_x) <= 127:
+        raise ValueError(f"qconv_fused: z_x {z_x} is not int8")
+    if (kh * w * lanes >= 2 ** 31 or b * oh * ow >= 2 ** 31
+            or max(kh, kw) >= 2 ** 15):
+        raise ValueError("qconv_fused: offsets beyond 32 bits")
+    if x_q.device.type == "cpu":
+        return qconv_fused_ref(x_q, w_packed, bias_term, rescale, w_sum_zx,
+                               const_off, z_w, kh=kh, kw=kw, stride=(sh, sw),
+                               pads=(pt, pb, pl, pr), c_true=c_true, z_x=z_x,
+                               lo=lo, hi=hi, n_true=n_true)
+    out = torch.empty((b, oh, ow, n), dtype=torch.int8, device=x_q.device)
+    err = _ckernel()(
+        ptr(x_q), ptr(w_packed, 16), ptr(bias_term, 16), ptr(rescale, 16),
+        ptr(w_sum_zx, 16), ptr(const_off, 16), ptr(z_w, 16), ptr(out, 16),
+        b * oh * ow, n, kp, h, w, lanes, oh, ow, kw, sh, sw, pt, pl, c_true,
+        k, int(z_x), float(lo), float(hi),
+        n if n_true is None else int(n_true), stage_bytes(kp),
+        cuda_stream(x_q))
+    _build.launch_check("qconv_fused", err)
+    conv_launches += 1
     return out
 
 

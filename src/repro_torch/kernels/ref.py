@@ -14,7 +14,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.ops_ref import I8_MAX, I8_MIN, _no_tf32, dw_acc, imatmul
+from repro_torch.core.ops_ref import (I8_MAX, I8_MIN, _no_tf32, dw_acc,
+                                      imatmul, patches)
 
 
 def _row(v, n: int, dtype, like: torch.Tensor) -> torch.Tensor:
@@ -51,6 +52,29 @@ def qmatmul_ref(x_q, w_q, bias_term, rescale, w_sum_zx, const_off, z_w, *,
     sum_x = x32.sum(-1, keepdim=True, dtype=torch.int32)
     return _requant(acc, sum_x, bias_term, rescale, w_sum_zx, const_off, z_w,
                     lo, hi, n_true)
+
+
+def qconv_fused_ref(x_q, w_packed, bias_term, rescale, w_sum_zx, const_off,
+                    z_w, *, kh, kw, stride, pads, c_true, z_x,
+                    lo=float("-inf"), hi=float("inf"), n_true=None):
+    """Plain version of ``kernels.qmatmul.qconv_fused``: the conv over the
+    first ``c_true`` lanes of NHWC ``x_q``, its (top, bottom, left, right)
+    border filled with ``z_x``, as packed im2col rows (tap-major, channel-
+    minor, zero up to ``w_packed``'s K) times the (N, K) ``w_packed``
+    -> (B, OH, OW, N) int8. It takes the kernel's own operands (the packed
+    weight, the pads), so ``chip_smoke.py`` holds the kernel against it and
+    times it at every call the engine makes, as it does every kernel's plain
+    version; the engine's CPU route is im2col over the lane-padded input,
+    which the CPU tests hold it to."""
+    pt, pb, pl, pr = pads
+    x = F.pad(x_q[..., :c_true], (0, 0, pl, pr, pt, pb), value=int(z_x))
+    p = patches(x, kh, kw, tuple(stride))
+    lead = tuple(p.shape[:3])
+    mat = p.reshape(-1, p.shape[-1])
+    mat = F.pad(mat, (0, w_packed.shape[1] - mat.shape[1]))
+    out = qmatmul_ref(mat, w_packed.t(), bias_term, rescale, w_sum_zx,
+                      const_off, z_w, lo=lo, hi=hi, n_true=n_true)
+    return out.reshape(lead + (out.shape[-1],))
 
 
 def paged_qmatmul_ref(x_q, w_q, bias_term, rescale, w_sum_zx, const_off,

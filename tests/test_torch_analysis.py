@@ -52,7 +52,9 @@ from repro_torch.analysis import __main__ as cli
 from repro_torch.core import graph as TG
 from repro_torch.core.engine import CompiledModel as TModel
 from repro_torch.core.engine import ExecutionPlan as TPlan
+from repro_torch.core.ops_ref import same_pads
 from repro_torch.core.preprocess import plan_layout, preprocess_graph
+from repro_torch.kernels.ops import conv_runs_fused
 
 from _torch_parity import carry
 
@@ -314,22 +316,54 @@ def test_device_advisory_bytes_accessed(graphs, name, route):
 
 # ------------------------------------------------------------ pad budget --
 
+def _dropped_on_card(plan):
+    """The pad/cat calls of the CPU's forward that the card's kernels make
+    themselves, from the plan's geometry: each depthwise SAME border with a
+    halo, and for each multi-tap planned conv (the fused conv kernel) its
+    SAME border with a halo, its im2col concatenation and its K pad where
+    the weight's K is not kh*kw*in_lanes."""
+    dropped = 0
+    layouts = plan.layout.layouts if plan.layout is not None else {}
+    for i, lay in layouts.items():
+        if lay.kind == "fc":
+            continue
+        op = plan.graph.ops[i]
+        kh, kw = plan.graph.tensor(op.inputs[1]).shape[:2]
+        h, w = plan.graph.tensor(op.inputs[0]).shape[1:3]
+        halo = op.attrs["padding"] == "SAME" and any(
+            sum(same_pads(h, w, kh, kw, tuple(op.attrs["stride"])), ()))
+        if lay.kind == "dwconv":
+            dropped += int(halo)
+        elif conv_runs_fused(kh * kw, "cuda"):
+            dropped += int(halo) + 1 + int(
+                lay.w_phys.shape[0] != kh * kw * lay.in_lanes)
+    return dropped
+
+
 @pytest.mark.parametrize("batched", [False, True], ids=["percall", "batched"])
 @pytest.mark.parametrize("route", ROUTES, ids=["plain", "kernels"])
 @pytest.mark.parametrize("name", MODELS)
 def test_pad_budget_equals_measured(graphs, name, route, batched):
     """The derived pad/cat calls equal the calls the forward makes on the
-    CPU; on the card the derivation drops exactly the depthwise SAME
-    borders the kernel fills itself (13 on person's kernel route)."""
+    CPU; on the card the derivation drops exactly the calls the kernels
+    make themselves: the depthwise SAME borders (13 on person's kernel
+    route) and, for each multi-tap planned conv (the fused conv kernel),
+    its SAME border where the halo is not zero, its im2col concatenation
+    and its K pad where the weight's K is not kh*kw*in_lanes (speech's
+    10x8/s2 conv and person's conv0: a border and a concatenation each)."""
     _, tplan = _plans(graphs, name, route)
+    dropped = _dropped_on_card(tplan)
+    assert dropped == ({"sine": 0, "speech": 2, "person": 13 + 2}[name]
+                       if route else 0)
     for bucket in ((1, 2) if batched else (1,)):
         budget = pad_budget(tplan, batched=batched, bucket=bucket)
         assert budget.enforceable
         assert budget.total == measured_pads(tplan, batched=batched,
                                              bucket=bucket), budget.items
         card = pad_budget(_on_card(tplan), batched=batched, bucket=bucket)
-        fused = 13 if (name == "person" and route) else 0
-        assert budget.total - card.total == fused
+        assert budget.total - card.total == dropped
+        if route:  # the planned convs on the card concatenate nothing
+            assert not any("im2col" in why for _, _, why in card.items)
 
 
 @pytest.mark.parametrize("route", ROUTES, ids=["plain", "kernels"])
@@ -337,7 +371,9 @@ def test_pad_budget_equals_measured(graphs, name, route, batched):
                                         ("speech", {2: 4})])
 def test_pad_budget_counts_paged_fc(graphs, name, paged, route):
     """A paged FC concatenates its pages in both page loops (one call), and
-    on the card's kernel route writes them in place (none)."""
+    on the card's kernel route writes them in place (none); the card's
+    kernels also fill the borders and gather the taps of the planned convs
+    (speech's conv: two calls)."""
     _, tg = graphs[name]
     plan = TPlan.build(tg, use_kernels=route, device="cpu", paged=paged)
     for batched in (False, True):
@@ -346,7 +382,8 @@ def test_pad_budget_counts_paged_fc(graphs, name, paged, route):
         assert budget.total == measured_pads(plan, batched=batched,
                                              bucket=2), budget.items
         card = pad_budget(_on_card(plan), batched=batched, bucket=2)
-        assert budget.total - card.total == (len(paged) if route else 0)
+        assert budget.total - card.total == (
+            len(paged) + _dropped_on_card(plan) if route else 0)
 
 
 def test_pad_budget_flags_op_knocked_off_plan(graphs):

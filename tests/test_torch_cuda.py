@@ -94,6 +94,122 @@ def test_wrapper_rejects_misaligned_rows(gen):
     assert mm.launches == before
 
 
+#: the fused conv on the card: (batch, H, W, cin, lanes, kh, kw, stride,
+#: padding, cout, z_x). Speech's 10x8/s2 at buckets 1, 8, 32 and 256 and
+#: conv0's 3x3/s2 at 1, 8 and 32 (one channel at 32 lanes, SAME, rows of 500
+#: and 2,304 a sample); cin 3, 8 and 40 at 32 and 64 lanes (packed K 27 ->
+#: 32, 72 -> 96, 360 -> 384, so slabs of 32, 128 and three of 128), N' 32
+#: to 128 (blocks of 32 columns), VALID, ragged rows, n_true < N'
+FUSED_CONVS = (
+    [(b, 49, 40, 1, 32, 10, 8, 2, "SAME", 8, -5) for b in (1, 8, 32, 256)]
+    + [(b, 96, 96, 1, 32, 3, 3, 2, "SAME", 8, 7) for b in (1, 8, 32)]
+    + [(3, 11, 9, 3, 32, 3, 3, 1, "SAME", 16, -128),
+       (2, 17, 13, 8, 32, 3, 3, 2, "VALID", 64, 3),
+       (2, 12, 10, 40, 64, 3, 3, 1, "SAME", 70, -9),
+       (1, 7, 7, 40, 64, 5, 3, 2, "VALID", 32, 0),
+       (3, 9, 14, 3, 64, 2, 2, 2, "SAME", 32, 100),
+       (2, 20, 20, 8, 64, 3, 3, 1, "SAME", 128, 1)])
+
+
+@pytest.mark.parametrize("geo", FUSED_CONVS)
+@pytest.mark.parametrize("lo,hi", [(float("-inf"), float("inf")),
+                                   (-20.0, float("inf")), (-20.0, 35.0)],
+                         ids=["none", "relu", "relu6"])
+def test_qconv_fused_kernel_equals_plain(gen, geo, lo, hi):
+    """A planned multi-tap conv on the card is one launch of the fused conv
+    kernel, bit for bit the im2col route it replaces (the SAME border
+    pre-padded, im2col, the qmatmul kernel) and the fused kernel's plain
+    version, with zero padding lanes; two calls give the same bits."""
+    from repro_torch.core.preprocess import OpLayout, pack_conv_taps
+    from repro_torch.kernels import ops, qconv, qmatmul as mm, ref
+    b, h, w, cin, lanes, kh, kw, s, padding, cout, z_x = geo
+    n = -(-cout // 32) * 32
+    x, f, c = _operands(gen, (b, h, w, lanes), (kh, kw, lanes, n), n)
+    x[..., cin:] = 0  # a planned producer's padding lanes
+    f[:, :, cin:, :] = 0
+    f[..., cout:] = 0
+    w_phys = f.reshape(kh * kw * lanes, n).cpu().numpy()
+    lay = OpLayout("conv", w_phys, tuple(v.cpu().numpy() for v in c), lo, hi,
+                   cout, lanes, (b, 0, 0, n), cin, z_x,
+                   np.ascontiguousarray(w_phys.T),
+                   pack_conv_taps(w_phys, kh, kw, cin)).to("cuda")
+    geo_kw = dict(kh=kh, kw=kw, stride=(s, s), padding=padding)
+    n_true = cout if cout < n else None
+    before = (mm.launches, mm.conv_launches)
+    got = ops.qconv_planned(x, lay, **geo_kw)
+    assert (mm.launches, mm.conv_launches) == (before[0], before[1] + 1)
+    im2col = qconv.qconv2d(
+        ops._pad_border_planned(x, kh, kw, (s, s), padding, z_x, cin),
+        lay.w_nk, *lay.consts, kh=kh, kw=kw, stride=(s, s), lo=lo, hi=hi,
+        n_true=n_true)
+    plain = ref.qconv_fused_ref(
+        x, lay.w_packed, *lay.consts, kh=kh, kw=kw, stride=(s, s),
+        pads=ops._border(x, kh, kw, (s, s), padding), c_true=cin, z_x=z_x,
+        lo=lo, hi=hi, n_true=n_true)
+    torch.testing.assert_close(got, im2col, rtol=0, atol=0)
+    torch.testing.assert_close(got, plain, rtol=0, atol=0)
+    assert not got[..., cout:].any()
+    assert torch.equal(ops.qconv_planned(x, lay, **geo_kw), got)
+
+
+@pytest.mark.parametrize("name,per_forward", [
+    ("speech", {"qmatmul": 1, "qmatmul_conv": 1}),
+    ("person", {"qmatmul": 14, "qmatmul_conv": 1, "qdwconv": 13})])
+def test_planned_conv_launches_fused_kernel_once_a_forward(gen, name,
+                                                           per_forward):
+    """Each multi-tap planned conv (speech's conv, person's conv0) is one
+    fused conv launch a forward, per call and at buckets 1 and 8; person's
+    13 pointwise convs and every FC still launch qmatmul."""
+    from repro_torch.kernels import launch_counts
+    cm, xs = _paper_engine(name)
+    (tid,) = cm.graph.inputs
+    shape = cm.graph.tensor(tid).shape
+    cm.predict_q_many(xs, max_batch=8)
+    forwards = [lambda: cm._fn(torch.as_tensor(xs[0], device="cuda"))]
+    for b in (1, 8):
+        staged = torch.as_tensor(xs[:b], device="cuda").reshape((b,) + shape)
+        forwards.append(lambda staged=staged: cm._batched_fn(staged))
+    for forward in forwards:
+        before = launch_counts()
+        forward()
+        calls = {k: v - before[k] for k, v in launch_counts().items()
+                 if v != before[k]}
+        assert calls == per_forward
+
+
+@pytest.mark.parametrize("name", ["speech", "person"])
+def test_card_plan_concatenates_no_im2col(gen, name):
+    """On the card's kernel route no forward calls ``torch.cat`` (the fused
+    conv gathers its taps in the kernel), and ``measured_pads`` counts what
+    the card's budget derives, per call and at buckets 1 and 8."""
+    from torch.overrides import TorchFunctionMode
+    from repro_torch.analysis.budget import measured_pads, pad_budget
+    from repro_torch.core.engine import _DTYPES
+
+    class Cats(TorchFunctionMode):
+        n = 0
+
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            self.n += getattr(func, "__name__", "") == "cat"
+            return func(*args, **(kwargs or {}))
+
+    cm, _ = _paper_engine(name)
+    plan = cm.exec_plan
+    (tid,) = plan.graph.inputs
+    t = plan.graph.tensor(tid)
+    for batched, bucket in ((False, 1), (True, 1), (True, 8)):
+        budget = pad_budget(plan, batched=batched, bucket=bucket)
+        assert not any("im2col" in why for _, _, why in budget.items)
+        assert measured_pads(plan, batched=batched, bucket=bucket) \
+            == budget.total
+        lead = (bucket,) if batched else ()
+        x = torch.zeros(lead + tuple(t.shape), dtype=_DTYPES[t.dtype],
+                        device="cuda")
+        with Cats() as mode:
+            plan.lower(batched=batched)(x)
+        assert mode.n == 0
+
+
 def test_person_engine_on_card_equals_cpu_plain_route(gen):
     from repro_torch.configs.paper_models import build_person
     from repro_torch.core.engine import CompiledModel
@@ -205,6 +321,37 @@ def _paper_engine(name, use_kernels=True):
                                                .astype("f")], device="cuda")
     xs = rng.integers(-128, 128, (8,) + shape).astype(np.int8)
     return CompiledModel(qg, use_kernels=use_kernels, device="cuda"), xs
+
+
+def test_no_collection_inside_a_capture(gen):
+    """The cyclic collector never runs inside a CUDA-graph capture: there
+    it could free a dead engine's graph, which a capturing stream does not
+    permit. With the collector set to run at every allocation and a
+    captured engine dead in a reference cycle, a second engine's capture
+    sees no collection and succeeds."""
+    import gc
+    during = []
+
+    def note(phase, info):
+        if phase == "start" and torch.cuda.is_current_stream_capturing():
+            during.append(info["generation"])
+
+    dead, xs = _paper_engine("sine")
+    dead.predict_q(xs[0])
+    dead.cycle = dead
+    del dead
+    thresholds = gc.get_threshold()
+    gc.set_threshold(1, 1, 1)
+    gc.callbacks.append(note)
+    try:
+        cm, _ = _paper_engine("sine")
+        got = cm.predict_q(xs[0])
+    finally:
+        gc.callbacks.remove(note)
+        gc.set_threshold(*thresholds)
+    assert during == []
+    assert np.array_equal(got, cm.predict_q(xs[0]))
+    assert gc.isenabled()
 
 
 @pytest.mark.parametrize("use_kernels", [True, False],

@@ -24,6 +24,7 @@ from repro.kernels.qmatmul import fmatmul as j_fmatmul
 from repro.kernels.qmatmul import qmatmul as j_qmatmul
 from repro_torch.core.ops_ref import FoldedConsts as TFolded, clamp_bounds
 from repro_torch.core.ops_ref import same_pads
+from repro_torch.core.preprocess import OpLayout, pack_conv_taps
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import qdwconv as dw_mod
 from repro_torch.kernels import qmatmul as mm_mod
@@ -264,6 +265,80 @@ def test_qconv_folded_matches_reference(shape, f, stride, padding, fused):
                                       padding=padding, fused=fused), want)
 
 
+def _planned_conv(rng, kh, kw, cin, lanes, cout):
+    """A planned conv's weights as ``plan_layout`` lays them out: w_phys
+    (kh*kw*lanes, N') with zero padding lanes, and its packed taps."""
+    n = -(-cout // 32) * 32
+    f = np.zeros((kh, kw, lanes, n), np.int8)
+    f[:, :, :cin, :cout] = _i8(rng, (kh, kw, cin, cout))
+    w_phys = f.reshape(kh * kw * lanes, n)
+    return w_phys, pack_conv_taps(w_phys, kh, kw, cin)
+
+
+@pytest.mark.parametrize("kh,kw,cin,lanes,cout", [
+    (10, 8, 1, 32, 8), (3, 3, 1, 32, 8), (3, 3, 3, 32, 16), (3, 3, 8, 32, 64),
+    (3, 3, 40, 64, 70), (2, 5, 32, 32, 32), (1, 1, 3, 32, 8)])
+def test_pack_conv_taps_layout(kh, kw, cin, lanes, cout):
+    """Packed row n holds the c_true real lanes of each tap of w_phys's
+    column n, tap-major and channel-minor, then zeros up to the next
+    multiple of 32 (speech 80 -> 96, conv0 9 -> 32, 360 -> 384)."""
+    w_phys, packed = _planned_conv(np.random.default_rng(kh * kw + cin),
+                                   kh, kw, cin, lanes, cout)
+    k = kh * kw * cin
+    n = w_phys.shape[1]
+    assert packed.dtype == np.int8 and packed.flags.c_contiguous
+    assert packed.shape == (n, -(-k // 32) * 32)
+    taps = w_phys.reshape(kh, kw, lanes, n)
+    for i in range(kh):
+        for j in range(kw):
+            tap = (i * kw + j) * cin
+            np.testing.assert_array_equal(packed[:, tap:tap + cin],
+                                          taps[i, j, :cin, :].T)
+    assert not packed[:, k:].any()
+
+
+#: fused-conv geometries: (batch, H, W, cin, lanes, kh, kw, stride,
+#: padding, cout, z_x): speech's 10x8/s2 and conv0's 3x3/s2 (one channel at
+#: 32 lanes, SAME), cin 3, 8 and 40 at 32 and 64 lanes, VALID, ragged rows
+FUSED_CONVS = [
+    (2, 49, 40, 1, 32, 10, 8, 2, "SAME", 8, -5),
+    (1, 96, 96, 1, 32, 3, 3, 2, "SAME", 8, 7),
+    (3, 11, 9, 3, 32, 3, 3, 1, "SAME", 16, -128),
+    (2, 17, 13, 8, 32, 3, 3, 2, "VALID", 64, 3),
+    (2, 12, 10, 40, 64, 3, 3, 1, "SAME", 70, -9),
+    (1, 7, 7, 40, 64, 5, 3, 2, "VALID", 32, 0),
+    (3, 9, 14, 3, 64, 2, 2, 2, "SAME", 32, 100),
+]
+
+
+@pytest.mark.parametrize("geo", FUSED_CONVS)
+@pytest.mark.parametrize("fused", FUSED)
+def test_qconv_fused_plain_equals_planned_im2col(geo, fused):
+    """The fused conv's plain version (the real lanes of each tap, the
+    border as z_x, K packed) gives the bits of the planned im2col route
+    over the lane-padded input, and counts no launch on the CPU."""
+    b, h, w, cin, lanes, kh, kw, s, padding, cout, z_x = geo
+    rng = np.random.default_rng(h * w + cin)
+    w_phys, packed = _planned_conv(rng, kh, kw, cin, lanes, cout)
+    n = w_phys.shape[1]
+    c = _consts(rng, n, rng.integers(-8, 9, n).astype(np.int32))
+    lo, hi = _bounds(c, fused)
+    x = _i8(rng, (b, h, w, lanes))
+    x[..., cin:] = 0
+    lay = OpLayout("conv", w_phys, c, lo, hi, cout, lanes, (0, 0, 0, n), cin,
+                   z_x, np.ascontiguousarray(w_phys.T), packed)
+    want = tops.qconv_planned(t(x), lay, kh=kh, kw=kw, stride=(s, s),
+                              padding=padding)
+    before = mm_mod.conv_launches
+    got = mm_mod.qconv_fused(
+        t(x), t(packed), *(t(v) for v in c), kh=kh, kw=kw, stride=(s, s),
+        pads=tops._border(t(x), kh, kw, (s, s), padding), c_true=cin,
+        z_x=z_x, lo=lo, hi=hi, n_true=cout if cout < n else None)
+    assert mm_mod.conv_launches == before
+    assert_i8_equal(got, want)
+    assert not got[..., cout:].any()
+
+
 # ---------------------------------------------------------------------------
 # wrappers reject what the kernels do not take
 # ---------------------------------------------------------------------------
@@ -330,6 +405,56 @@ def test_qdwconv_wrapper_rejects(bad):
         kw.update(pads=(1, 1, 1, 1), z_x=128)
     with pytest.raises((ValueError, TypeError)):
         t_qdwconv(x, w, *cst, **kw)
+
+
+@pytest.mark.parametrize("bad", ["x_rank", "x_dtype", "noncontig",
+                                 "k_not_packed", "k_lane_padded",
+                                 "c_true_zero", "c_true_over_lanes",
+                                 "n_quantum", "const_shape", "z_x_range",
+                                 "negative_pad", "no_output", "zero_stride"])
+def test_qconv_fused_wrapper_rejects(bad):
+    """The fused conv refuses what its kernel does not take: a packed K
+    that is not round_up(kh*kw*c_true, 32) (the K of the lane-padded
+    weight included), real lanes outside the input's, an N that is no
+    multiple of 32, a z_x that is no int8, a negative pad, a window that
+    leaves no output, and the operands' dtype, shape and contiguity."""
+    rng = np.random.default_rng(2)
+    w_phys, packed = _planned_conv(rng, 3, 3, 1, 32, 8)
+    x = t(_i8(rng, (2, 9, 9, 32)))
+    w = t(packed)
+    cst = [t(v) for v in _consts(rng, 32, 0)]
+    kw = dict(kh=3, kw=3, stride=(2, 2), pads=(0, 1, 0, 1), c_true=1, z_x=4)
+    if bad == "x_rank":
+        x = x[0]
+    elif bad == "x_dtype":
+        x = x.to(torch.int16)
+    elif bad == "noncontig":
+        x = x.transpose(1, 2)
+    elif bad == "k_not_packed":
+        w = torch.zeros((32, 64), dtype=torch.int8)
+    elif bad == "k_lane_padded":
+        w = t(np.ascontiguousarray(w_phys.T))
+    elif bad == "c_true_zero":
+        kw["c_true"] = 0
+    elif bad == "c_true_over_lanes":
+        kw["c_true"] = 33
+    elif bad == "n_quantum":
+        w, cst = w[:16].contiguous(), [v[:16] for v in cst]
+    elif bad == "const_shape":
+        cst[2] = cst[2][:10]
+    elif bad == "z_x_range":
+        kw["z_x"] = -129
+    elif bad == "negative_pad":
+        kw["pads"] = (0, -1, 0, 1)
+    elif bad == "no_output":
+        kw.update(kh=11, pads=(0, 0, 0, 0))
+        w = torch.zeros((32, 64), dtype=torch.int8)
+    elif bad == "zero_stride":
+        kw["stride"] = (0, 2)
+    before = mm_mod.conv_launches
+    with pytest.raises((ValueError, TypeError)):
+        mm_mod.qconv_fused(x, w, *cst, **kw)
+    assert mm_mod.conv_launches == before
 
 
 #: person's 13 depthwise layers at the 32-lane quantum: (unpadded H = W,
