@@ -2,7 +2,8 @@
 answer against the reference, and the result line. Everything that belongs
 to one configuration, traffic mix or metric is a file found by its name in
 ``BENCHMARK.json``: ``configs/<config>.json``, ``traffic/<mix>.json`` and
-``metrics/<metric>.py``."""
+``metrics/<metric>.py``; the configuration's model family (its model, rows,
+engine, driver, check and count of work) is ``families/<family>.py``."""
 from __future__ import annotations
 
 import gc
@@ -13,7 +14,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from portbench import drive, metrics as MX, model as M, port
+from portbench import drive, families, metrics as MX
 from portbench.devtrace import DeviceTrace
 from portbench.reference import load as load_reference
 
@@ -49,11 +50,16 @@ def cell_metrics(bench, cell, trace: bool) -> list:
 class Run:
     """What a metric reader reads (see ``portbench/metrics``)."""
 
-    def __init__(self, layers, rec, setup_s, peak, rows_ok):
-        self.layers, self.rec, self.setup_s, self.peak = (
-            layers, rec, setup_s, peak)
+    def __init__(self, work, rec, setup_s, peak, rows_ok):
+        self.work, self.rec, self.setup_s, self.peak = (
+            work, rec, setup_s, peak)
         self.rows_ok = rows_ok  # answered and right
         self.window_s = rec.t_close - rec.t_start
+
+    @property
+    def layers(self):
+        """The int8 family's layers (``model.shapes``)."""
+        return self.work.layers
 
 
 def answers(rec, classes: int):
@@ -102,30 +108,26 @@ def run_cell(bench, cell, seed: int, seconds: float, trace: bool,
     (set-up is counted from it); ``overrides`` replace traffic keys (the
     tests' small sizes); ``inspect(qmodel, config, rec, pool)``, when
     given, is called once the answers are checked (the control's
-    readings); ``marks``: seconds of set-up already spent, by step, noted
-    with the harness's own."""
+    readings), with the family's model and pool; ``marks``: seconds of
+    set-up already spent, by step, noted with the harness's own."""
     started = time.perf_counter() if started is None else started
     config = load_json(HERE / "configs" / f"{cell['config']}.json")
     traffic = {**load_json(HERE / "traffic" / f"{cell['traffic']}.json"),
                **(overrides or {})}
     specs = cell_metrics(bench, cell, trace)
-    layers = M.shapes(config)
+    family = families.of(config)
+    work = family.work(config)
 
     marks = {**(marks or {}), "start": time.perf_counter() - started}
-    qmodel = M.make_model(config, seed, device)
+    qmodel = family.model(config, seed, device)
     marks["model"] = time.perf_counter() - started
-    pool = drive.Pool(config, qmodel, traffic, seed, device)
+    pool = family.pool(config, qmodel, traffic, seed, device)
     marks["rows"] = time.perf_counter() - started
     cuda = torch.device(device).type == "cuda"
     if cuda:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-    tracer = None
-    if trace and traffic["entry"] in ("registry", "registry_open"):
-        from repro_torch.obs.trace import Tracer
-        tracer = Tracer()
-    drv = drive.driver(traffic, port.compiled_model(qmodel, device), pool,
-                       tracer)
+    drv = family.driver(traffic, family.engine(qmodel, device), pool, trace)
     marks["engine"] = time.perf_counter() - started
     drv.warm(float(traffic["warm_s"]))
     marks["warm"] = time.perf_counter() - started
@@ -147,10 +149,10 @@ def run_cell(bench, cell, seed: int, seconds: float, trace: bool,
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()
-    verdict = check(qmodel, config, rec, pool.rows, device)
+    verdict = family.check(qmodel, config, rec, pool, device)
     if inspect is not None:
         inspect(qmodel, config, rec, pool)
-    run = Run(layers, rec, setup_s, MX.peak_of(dev["kind"]),
+    run = Run(work, rec, setup_s, MX.peak_of(dev["kind"]),
               verdict["answered"] - verdict["wrong"])
     values = {}
     for spec in specs:

@@ -11,8 +11,6 @@ from pathlib import Path
 
 import numpy as np
 
-from portbench import count as C
-
 HERE = Path(__file__).resolve().parent
 
 
@@ -48,25 +46,33 @@ def kernel_s(run, match=None) -> float:
                if "kernel" in kind and (match is None or match(name)))
 
 
+def bound_s(work: dict, peak: dict, key: str) -> float:
+    """The least time the card could take: the larger of the products over
+    its ``key`` peak and the bytes over the memory bandwidth."""
+    return max(work["flops"] / peak[key],
+               work["bytes"] / peak["hbm_bytes_per_s"])
+
+
 def roofline(run, ops=None, match=None):
     """Percent of the roofline: the least time the traced rows need (the
-    frozen count of ``ops``, all when None) over the kernels' time."""
+    family's frozen count of ``ops``, all when None, against its peak)
+    over the kernels' time."""
     tr, peak = run.rec.trace, run.peak
     secs = kernel_s(run, match)
     if tr is None or peak is None or secs <= 0 or tr["rows"] <= 0:
         return None
-    work = C.count(run.layers, tr["rows"], tr["calls"], ops)
-    return 100.0 * C.bound_s(work, peak) / secs
+    work = run.work(tr["rows"], tr["calls"], ops)
+    return 100.0 * bound_s(work, peak, run.work.peak) / secs
 
 
 def mfu(run):
-    """Percent of the card's int8 peak that the first phase's answered rows
-    needed, over that phase's seconds."""
+    """Percent of the card's peak in the family's dtype that the first
+    phase's answered rows needed, over that phase's seconds."""
     a, peak = run.rec.phase_a, run.peak
     if a is None or peak is None or a["s"] <= 0:
         return None
-    flops = C.count(run.layers, a["rows"])["flops"]
-    return 100.0 * flops / (a["s"] * peak["int8_ops_per_s"])
+    flops = run.work(a["rows"])["flops"]
+    return 100.0 * flops / (a["s"] * peak[run.work.peak])
 
 
 def idle(run):
